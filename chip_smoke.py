@@ -8,13 +8,18 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
 1. device — requires CUDA; prints the card's name and power limit
    (nvidia-smi) and the torch and CUDA versions;
 2. build — every kernel from ``csrc/`` (one nvcc per source, started
-   together), with ptxas' register/shared-memory report;
+   together), with ptxas' register/shared-memory report, which must show
+   no spills;
 3. kernels vs their plain torch versions on the card, at the main path's
-   shapes and at every registered slot count (timed with CUDA events);
+   shapes and at every registered slot count, and the tiled second-moment
+   kernel bit for bit against the rowwise one; both timed in turns with
+   CUDA events at the 240/390/1440-slot shapes;
 4. the main path at full width — ``synth_day`` → ``grid_day`` →
    ``compute_batch`` for 5000 tickers x 8 days on ``cn_ashare_240`` —
-   through the kernel (launch counts reset just before, read just after)
-   and held against the same batch through the plain version;
+   through the tiled kernel (launch counts reset just before, read just
+   after) and held against the same batch through the plain version; then
+   the generic-window path, ``ops.rolling.rolling_window_stats`` at window
+   20 on the same batch, through the rowwise kernel;
 5. where one main-path call spends its device time (``torch.profiler``);
 6. the card against the CPU on a small batch (the CPU path is the one
    the tests hold against the JAX package).
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import ast
 import json
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +47,11 @@ TICKERS, DAYS = 5000, 8
 #: H100 SXM peaks (NVIDIA data sheet) used for the kernels' bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+#: the generic-window path's window (any window but 50 runs the rowwise
+#: kernel)
+OTHER_WINDOW = 20
+#: CUDA-event samples per turn, launches per sample
+TURN_SAMPLES, SAMPLE_LAUNCHES = 5, 20
 
 
 def fail(msg: str) -> None:
@@ -89,6 +100,38 @@ def cuda_times_ms(fn, iters: int = 10, warmup: int = 3):
     return [start.elapsed_time(stop) for start, stop in pairs]
 
 
+def batched_times_ms(fn, samples: int = TURN_SAMPLES,
+                     launches: int = SAMPLE_LAUNCHES):
+    """Per-launch device times of ``fn`` in ms: each sample is one pair of
+    CUDA events around ``launches`` back-to-back calls, divided by
+    ``launches``."""
+    fn()
+    out = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop) / launches)
+    return out
+
+
+def moment_bound(rows: int, L: int, window: int = WINDOW):
+    """(bound_ms, bound_by, MB moved, G FP32 instructions) of one
+    second-moment call: each input plane read once and each output written
+    once, at the HBM rate; 5 FP32 instructions per term (2 FSUB, 3 FFMA;
+    an FSUB takes an FFMA's issue slot) at half the FLOP rate."""
+    n_bytes = 7 * rows * L * 4
+    n_instr = 5 * window * rows * L
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_instr / (F32_FLOPS_PER_S / 2) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", n_bytes / 1e6, n_instr / 1e9)
+
+
 def wall_times_ms(fn, iters: int):
     """Per-call host wall times of ``fn`` in ms, each ending in a device
     synchronise."""
@@ -106,10 +149,11 @@ def spread(samples) -> str:
             f"max {max(samples):.4f}, n={len(samples)})")
 
 
-def moment_case(rows: int, L: int, seed: int):
+def moment_case(rows: int, L: int, seed: int, window: int = WINDOW):
     """Second-moment inputs at ``[rows, L]`` on the card, made the way the
     main path makes them: a close random walk, low/high at -/+0.1%, 5%
-    missing bars, row 0 full and row 1 full and constant."""
+    missing bars, row 0 full and row 1 full and constant (where there are
+    two rows)."""
     from replication_of_minute_frequency_factor_tpu_torch.ops import rolling
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -119,38 +163,113 @@ def moment_case(rows: int, L: int, seed: int):
     mask = torch.rand(rows, L, generator=g, device="cuda") > 0.05
     mask[:2] = True
     low[1], high[1] = low[1, 0], high[1, 0]
-    valid = rolling._windowed_sum(mask, WINDOW) > WINDOW - 0.5
-    return rolling.second_moment_inputs(low, high, mask, WINDOW), valid
+    valid = rolling._windowed_sum(mask, window) > window - 0.5
+    return rolling.second_moment_inputs(low, high, mask, window), valid
 
 
-def check_moments(rows: int, L: int, seed: int, rtol=1e-5, atol=1e-9):
-    """Kernel vs plain version on valid lanes; exactly-zero variance on
-    the constant row. Returns (inputs, max_abs_err)."""
+def launched(before):
+    """Kernel launches per kernel since the ``before`` snapshot."""
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
         rolling_cuda)
 
-    args, valid = moment_case(rows, L, seed)
-    got = rolling_cuda.second_moments(*args, WINDOW)
-    torch.cuda.synchronize()
-    want = rolling_cuda.second_moments_plain(*args, WINDOW)
+    return {k: n - before[k] for k, n in rolling_cuda.launches.items()}
+
+
+def hold_to_plain(label, got, want, valid, rtol, atol):
+    """Finite values within rtol/atol of the plain version on valid lanes
+    and exactly-zero moments on the constant row 1; returns max |diff|."""
     err = 0.0
     for name, a, b in zip(("s_xx", "s_yy", "s_xy"), got, want):
         a, b = a[valid], b[valid]
         if not bool(torch.isfinite(a).all()):
-            fail(f"second_moments {rows}x{L}: non-finite {name}")
+            fail(f"{label}: non-finite {name}")
         diff = (a - b).abs()
         bad = diff > atol + rtol * b.abs()
         if bool(bad.any()):
-            fail(f"second_moments {rows}x{L}: {name} disagrees with the "
-                 f"plain version at {int(bad.sum())} lanes (max |diff| "
+            fail(f"{label}: {name} disagrees with the plain version at "
+                 f"{int(bad.sum())} lanes (max |diff| "
                  f"{float(diff.max()):.3e})")
-        err = max(err, float(diff.max()))
-    if any(float(s[1][valid[1]].abs().max()) != 0.0 for s in got):
-        fail(f"second_moments {rows}x{L}: the constant row's moments are "
-             "not exactly zero")
-    log(f"kernel second_moments rows={rows} L={L}: max_abs_err={err:.3e} "
-        f"(rtol {rtol}, atol {atol} on valid lanes) ok")
+        if diff.numel():
+            err = max(err, float(diff.max()))
+    if valid.shape[0] > 1 and bool(valid[1].any()) and any(
+            float(s[1][valid[1]].abs().max()) != 0.0 for s in got):
+        fail(f"{label}: the constant row's moments are not exactly zero")
+    return err
+
+
+def check_moments(rows: int, L: int, seed: int, rtol=1e-5, atol=1e-9):
+    """The tiled kernel (through the wrapper) vs the plain version on
+    valid lanes, and bit for bit vs the rowwise kernel on every lane (so
+    the two share one max_abs_err). Returns (inputs, max_abs_err)."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+
+    args, valid = moment_case(rows, L, seed)
+    before = dict(rolling_cuda.launches)
+    got = rolling_cuda.second_moments(*args, WINDOW)
+    base = rolling_cuda._second_moments_rowwise(*args, WINDOW)
+    torch.cuda.synchronize()
+    if launched(before) != {"tiled": 1, "rowwise": 1}:
+        fail(f"second_moments {rows}x{L}: launches {launched(before)}, "
+             "expected one tiled (wrapper) and one rowwise")
+    for name, a, b in zip(("s_xx", "s_yy", "s_xy"), got, base):
+        neq = a.view(torch.int32) != b.view(torch.int32)
+        if bool(neq.any()):
+            fail(f"second_moments {rows}x{L}: tiled {name} differs from "
+                 f"the rowwise kernel's bits at {int(neq.sum())} of "
+                 f"{neq.numel()} lanes")
+    want = rolling_cuda.second_moments_plain(*args, WINDOW)
+    label = f"second_moments {rows}x{L}"
+    err = hold_to_plain(label, got, want, valid, rtol, atol)
+    log(f"kernel second_moments rows={rows} L={L}: tiled bitwise equal to "
+        f"rowwise on all {3 * rows * L} lanes; max_abs_err={err:.3e} vs "
+        f"plain (rtol {rtol}, atol {atol} on {int(valid.sum())} valid "
+        "lanes) ok")
     return args, err
+
+
+def check_other_window(rows: int, L: int, seed: int, rtol=1e-5,
+                       atol=1e-9):
+    """A window other than 50 through the wrapper: one rowwise launch, no
+    tiled one, within rtol/atol of the plain version on valid lanes."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+
+    args, valid = moment_case(rows, L, seed, OTHER_WINDOW)
+    before = dict(rolling_cuda.launches)
+    got = rolling_cuda.second_moments(*args, OTHER_WINDOW)
+    torch.cuda.synchronize()
+    if launched(before) != {"tiled": 0, "rowwise": 1}:
+        fail(f"window {OTHER_WINDOW}: launches {launched(before)}, expected "
+             "one rowwise")
+    want = rolling_cuda.second_moments_plain(*args, OTHER_WINDOW)
+    err = hold_to_plain(f"second_moments window={OTHER_WINDOW} {rows}x{L}",
+                        got, want, valid, rtol, atol)
+    log(f"kernel second_moments window={OTHER_WINDOW} rows={rows} L={L}: "
+        f"one rowwise launch; max_abs_err={err:.3e} vs plain ok")
+
+
+def time_moments(rows: int, L: int, card: str):
+    """The rowwise and tiled kernels at ``[rows, L]`` in turns (rowwise,
+    tiled, tiled, rowwise); returns {kernel: per-launch ms samples}."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+
+    args, _ = moment_case(rows, L, seed=rows + L + 1)
+    fns = {"tiled": lambda: rolling_cuda.second_moments(*args, WINDOW),
+           "rowwise": lambda: rolling_cuda._second_moments_rowwise(
+               *args, WINDOW)}
+    out = {"tiled": [], "rowwise": []}
+    for k in ("rowwise", "tiled", "tiled", "rowwise"):
+        out[k] += batched_times_ms(fns[k])
+    bound, by, mb, gi = moment_bound(rows, L)
+    log(f"second_moments [{rows}, {L}] on {card}: tiled "
+        f"{spread(out['tiled'])} ({bound / np.median(out['tiled']):.0%} of "
+        f"bound); rowwise {spread(out['rowwise'])} "
+        f"({bound / np.median(out['rowwise']):.0%} of bound); bound "
+        f"{bound:.4f} ms by {by} ({mb:.1f} MB moved, {gi:.2f} G FP32 "
+        "instructions)")
+    return out
 
 
 def synth_batch(n_tickers: int, n_days: int, seed: int, session=None,
@@ -309,33 +428,46 @@ def main() -> None:
     for name, text in kernels.BUILD_LOGS.items():
         for line in text.strip().splitlines():
             log(f"nvcc[{name}]: {line.strip()}")
+        spills = [m.group(0) for m in re.finditer(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+            if m.group(1) != "0" or m.group(2) != "0"]
+        if spills:
+            fail(f"ptxas reports register spills in {name}: {spills}")
+    if set(kernels.BUILD_LOGS) != set(paths):
+        log(f"build: {sorted(set(paths) - set(kernels.BUILD_LOGS))} were "
+            "already built; no ptxas report for them in this run")
 
-    # 3. kernel vs plain version on the card
+    # 3. kernels vs plain version on the card; tiled vs rowwise bit for bit
     rows = DAYS * TICKERS
     args, max_err = check_moments(rows, 240, seed=1)
-    for r_, L in ((rows, 390), (8000, 1440), (12347, 240), (3, 240)):
+    for r_, L in ((rows, 390), (8000, 1440), (12347, 240), (4001, 150),
+                  (3, 240), (5, 40)):
         check_moments(r_, L, seed=L + r_)
+    check_other_window(4001, 240, seed=20)
     for L in (240, 390, 150, 1440):
+        before = dict(rolling_cuda.launches)
         res = rolling._smoke(device="cuda", length=L)
+        if launched(before) != {"tiled": res["checks"] // 2, "rowwise": 0}:
+            fail(f"rolling._smoke L={L}: launches {launched(before)}, "
+                 "expected the tiled kernel once per seed")
         log(f"rolling._smoke L={L} impls={res['impls']}: "
-            f"{res['checks']} checks ok")
-    # in turns (kernel, plain, plain, kernel), per-call CUDA events
+            f"{res['checks']} checks ok, through the tiled kernel")
+    # the plain version in turns with the tiled kernel, per-call events
     kernel_ms, plain_ms = [], []
     for dest, fn in ((kernel_ms, rolling_cuda.second_moments),
                      (plain_ms, rolling_cuda.second_moments_plain),
                      (plain_ms, rolling_cuda.second_moments_plain),
                      (kernel_ms, rolling_cuda.second_moments)):
         dest += cuda_times_ms(lambda: fn(*args, WINDOW))
-    ms, plain = float(np.median(kernel_ms)), float(np.median(plain_ms))
-    n_bytes = 7 * rows * 240 * 4
-    n_flops = 8 * WINDOW * rows * 240
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
-    log(f"second_moments [{rows}, 240] on {card}: kernel "
-        f"{spread(kernel_ms)}; plain {spread(plain_ms)}; bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({n_bytes / 1e6:.1f} MB moved, "
-        f"{n_flops / 1e9:.2f} GFLOP f32)")
+    plain = float(np.median(plain_ms))
+    log(f"second_moments [{rows}, 240] on {card}: tiled kernel, one call "
+        f"per event pair, {spread(kernel_ms)}; plain {spread(plain_ms)}")
     del args
+    # the two kernels in turns, 20 launches per event pair
+    timed = {(r_, L): time_moments(r_, L, card)
+             for r_, L in ((rows, 240), (rows, 390), (8000, 1440))}
+    main_ms = {k: float(np.median(v)) for k, v in timed[(rows, 240)].items()}
+    bound, bound_by, _, _ = moment_bound(rows, 240)
 
     # 4. the main path at full width
     t0 = time.perf_counter()
@@ -354,7 +486,7 @@ def main() -> None:
     out = compute_batch(bars, mask, device="cuda", rolling_impl="cuda")
     torch.cuda.synchronize()
     walls = [(time.perf_counter() - t0) * 1e3]
-    launches = rolling_cuda.launches
+    launches = dict(rolling_cuda.launches)
     impl_counts = dict(rolling.IMPL_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     walls += wall_times_ms(lambda: compute_batch(
@@ -367,8 +499,9 @@ def main() -> None:
         f"{resolved} ({card})")
     if tuple(out.shape) != (len(names), DAYS, TICKERS):
         fail(f"compute_batch returned {tuple(out.shape)}")
-    if launches < 1:
-        fail("the main path never launched the second_moments kernel")
+    if launches != {"tiled": 1, "rowwise": 0}:
+        fail(f"the main path launched {launches}; expected the tiled "
+             "second_moments kernel once")
     if impl_counts != {("cuda", "cuda"): 1}:
         fail(f"rolling impl resolved as {impl_counts}, expected cuda once")
     for i, name in enumerate(names):
@@ -388,6 +521,33 @@ def main() -> None:
         f"positions identical; {n_bitwise} bitwise equal; worst value used "
         f"{worst:.2e} of its tolerance) ({card})")
     del out, ref, ctx, beta
+
+    # 4b. the generic-window path through the rowwise kernel
+    low = torch.from_numpy(bars[..., 2]).cuda().float().contiguous()
+    high = torch.from_numpy(bars[..., 1]).cuda().float().contiguous()
+    present = torch.from_numpy(mask).cuda()
+    torch.cuda.synchronize()
+    rolling_cuda.reset_launches()
+    st = rolling.rolling_window_stats(low, high, present, OTHER_WINDOW,
+                                      impl="cuda")
+    torch.cuda.synchronize()
+    other_launches = dict(rolling_cuda.launches)
+    if other_launches != {"tiled": 0, "rowwise": 1}:
+        fail(f"rolling_window_stats window={OTHER_WINDOW} launched "
+             f"{other_launches}; expected the rowwise kernel once")
+    ref_st = rolling.rolling_window_stats(low, high, present, OTHER_WINDOW,
+                                          impl="torch")
+    v = st["valid"]
+    if not bool(v.any()) or not torch.equal(v, ref_st["valid"]):
+        fail(f"rolling_window_stats window={OTHER_WINDOW}: validity differs "
+             "from the plain run or is empty")
+    for k in ("cov", "var_x", "var_y"):
+        torch.testing.assert_close(st[k][v], ref_st[k][v], rtol=1e-5,
+                                   atol=1e-9)
+    log(f"rolling_window_stats {tuple(low.shape)} window={OTHER_WINDOW}: "
+        f"launches {other_launches}; cov/var agree with the plain run on "
+        f"{int(v.sum())} valid lanes ({card})")
+    del low, high, present, st, ref_st, v
 
     # 5. where the main path's device time goes
     profile_main_path(compute_batch, bars, mask, card)
@@ -411,21 +571,25 @@ def main() -> None:
             f"bitwise equal; worst value used {worst:.2e} of its "
             "tolerance)")
 
+    src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
+          "rolling_moments.cu"
+    tpu = "replication_of_minute_frequency_factor_tpu/ops/rolling_pallas.py:113"
     print(json.dumps({"kernels": [{
-        "name": "second_moments",
+        "name": name,
         "route": "cuda",
-        "source": "replication_of_minute_frequency_factor_tpu_torch/csrc/"
-                  "rolling_moments.cu",
-        "replaces": "replication_of_minute_frequency_factor_tpu/ops/"
-                    "rolling_pallas.py:113",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
+        "source": src,
+        "replaces": tpu,
+        "launches": n,
+        "max_abs_err": err,
+        "ms": main_ms[variant],
         "plain_ms": plain,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    } for name, variant, n, err in (
+        ("second_moments", "tiled", launches["tiled"], max_err),
+        ("second_moments_rowwise", "rowwise", other_launches["rowwise"],
+         max_err))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,8 @@
 """The port's hand-written kernels on the card (``cuda`` marker).
 
 Every test here skips without a CUDA device: the kernels have no CPU mode.
+Window 50 runs the tiled kernel, any other window the rowwise one; the
+two give the same bits.
 The module imports neither jax nor the JAX package, so on a machine with
 the card and without jax the tests run alone, past the jax set-up in
 conftest.py:
@@ -22,36 +24,83 @@ def _card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
-def _moment_inputs(rows, length, seed):
+def _moment_inputs(rows, length, seed, window=W):
     g = torch.Generator(device="cuda").manual_seed(seed)
     close = 10 * torch.exp(torch.cumsum(
         torch.randn(rows, length, generator=g, device="cuda") * 1e-3, -1))
     mask = torch.rand(rows, length, generator=g, device="cuda") > 0.05
-    args = rolling.second_moment_inputs(close * 0.999, close * 1.001, mask, W)
-    return args, rolling._windowed_sum(mask, W) > W - 0.5
+    args = rolling.second_moment_inputs(close * 0.999, close * 1.001, mask,
+                                        window)
+    return args, rolling._windowed_sum(mask, window) > window - 0.5
+
+
+def _launched(before):
+    return {k: n - before[k] for k, n in rolling_cuda.launches.items()}
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length", [(8 * 5000, 240), (4001, 390),
-                                         (3, 1440)])
+                                         (4001, 150), (3, 1440), (5, 40)])
 def test_kernel_matches_plain_on_the_card(rows, length):
-    """The Hopper kernel vs its plain version (``python3 chip_smoke.py``
-    runs the same check at the main path's shapes)."""
+    """The tiled kernel (window 50, through the wrapper) vs its plain
+    version on valid lanes, and bit for bit vs the rowwise kernel on every
+    lane (``python3 chip_smoke.py`` runs the same checks at the main
+    path's shapes). At 40 slots no window is complete."""
     _card()
     args, valid = _moment_inputs(rows, length, rows + length)
-    before = rolling_cuda.launches
+    before = dict(rolling_cuda.launches)
     got = rolling_cuda.second_moments(*args, W)
+    base = rolling_cuda._second_moments_rowwise(*args, W)
     torch.cuda.synchronize()
-    assert rolling_cuda.launches == before + 1
-    for a, b in zip(got, rolling_cuda.second_moments_plain(*args, W)):
+    assert _launched(before) == {"tiled": 1, "rowwise": 1}
+    plain = rolling_cuda.second_moments_plain(*args, W)
+    for a, b, c in zip(got, base, plain):
+        assert _same_bits(a, b)
+        torch.testing.assert_close(a[valid], c[valid], rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,kernel", [(20, "rowwise"), (W, "tiled")])
+def test_window_picks_the_kernel(window, kernel):
+    _card()
+    args, valid = _moment_inputs(64, 240, window, window)
+    before = dict(rolling_cuda.launches)
+    got = rolling_cuda.second_moments(*args, window)
+    torch.cuda.synchronize()
+    assert _launched(before) == {k: int(k == kernel)
+                                 for k in rolling_cuda.launches}
+    for a, b in zip(got, rolling_cuda.second_moments_plain(*args, window)):
         torch.testing.assert_close(a[valid], b[valid], rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_refuses_a_misaligned_view():
+    """A view 4 bytes into its storage raises before any launch; the
+    rowwise kernel, which reads single floats, takes it."""
+    _card()
+    args, _ = _moment_inputs(8, 240, 1)
+    buf = torch.empty(8 * 240 + 1, device="cuda")
+    view = buf[1:].view(8, 240)
+    view.copy_(args[0])
+    assert view.is_contiguous() and view.data_ptr() % 16
+    before = dict(rolling_cuda.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rolling_cuda.second_moments(view, *args[1:], W)
+    assert _launched(before) == {"tiled": 0, "rowwise": 0}
+    got = rolling_cuda._second_moments_rowwise(view, *args[1:], W)
+    for a, b in zip(got, rolling_cuda.second_moments(*args, W)):
+        assert _same_bits(a, b)
 
 
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     _card()
     args, _ = _moment_inputs(8, 240, 0)
-    before = rolling_cuda.launches
+    before = dict(rolling_cuda.launches)
     with pytest.raises(TypeError, match="float32"):
         rolling_cuda.second_moments(args[0].double(), *args[1:], W)
     with pytest.raises(ValueError, match="contiguous"):

@@ -90,7 +90,7 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():
     rolling_cuda.reset_launches()
     got = rolling_cuda.second_moments(*args, 50)
     want = rolling._second_moments_conv(*args, 50)
-    assert rolling_cuda.launches == 0
+    assert rolling_cuda.launches == {"tiled": 0, "rowwise": 0}
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert rolling_cuda.second_moments_plain is rolling._second_moments_conv

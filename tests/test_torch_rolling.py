@@ -131,7 +131,26 @@ def test_windowed_sum_is_exact_on_counts():
 
 def test_wrapper_refuses_tensors_off_the_cpu_and_the_card():
     xs = [torch.zeros((2, 240))] * 3 + [torch.zeros((2, 240), device="meta")]
-    before = rolling_cuda.launches
+    before = dict(rolling_cuda.launches)
     with pytest.raises(ValueError, match="one CUDA device"):
         rolling_cuda.second_moments(*xs, W)
     assert rolling_cuda.launches == before
+
+
+def test_window_50_is_the_tiled_kernels_and_the_source_agrees():
+    """The wrapper sends window 50 to the tiled kernel and every other
+    window to the rowwise one; the tiled kernel's compiled window is the
+    wrapper's."""
+    import re
+
+    from replication_of_minute_frequency_factor_tpu_torch import kernels
+
+    assert rolling_cuda.kernel_for(W) == "tiled"
+    assert {rolling_cuda.kernel_for(w) for w in (1, 20, 49, 51, 240)} == {
+        "rowwise"}
+    src = (kernels.CSRC_DIR / "rolling_moments.cu").read_text()
+    assert re.search(r"constexpr int kTiledWindow = (\d+);", src).group(1) \
+        == str(rolling_cuda.TILED_WINDOW) == str(W)
+    for entry in ("rolling_second_moments_tiled",
+                  "rolling_second_moments_rowwise"):
+        assert f'extern "C" int {entry}(' in src
