@@ -15,14 +15,32 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    kernel bit for bit against the rowwise one; both timed in turns with
    CUDA events at the 240/390/1440-slot shapes;
 4. the main path at full width — ``synth_day`` → ``grid_day`` →
-   ``compute_batch`` for 5000 tickers x 8 days on ``cn_ashare_240`` —
-   through the tiled kernel (launch counts reset just before, read just
-   after) and held against the same batch through the plain version; then
-   the generic-window path, ``ops.rolling.rolling_window_stats`` at window
-   20 on the same batch, through the rowwise kernel;
-5. where one main-path call spends its device time (``torch.profiler``);
-6. the card against the CPU on a small batch (the CPU path is the one
-   the tests hold against the JAX package).
+   ``compute_batch`` for all 58 factors, 5000 tickers x 8 days on
+   ``cn_ashare_240`` — through the tiled kernel (launch counts reset just
+   before, read just after) and held against the same batch through the
+   plain version; then the generic-window path,
+   ``ops.rolling.rolling_window_stats`` at window 20 on the same batch,
+   through the rowwise kernel;
+4c. the packed path at full width: the same batch encoded on the host into
+   the ingest wire, packed into one buffer, copied, decoded on the card
+   (bitwise the CPU's decode) and run by ``compute_packed_prepared``, whose
+   result must equal ``compute_batch`` on the decoded bars bit for bit; the
+   raw packed path likewise against ``compute_batch`` on the raw bars; one
+   tiled launch per call; walls and bytes copied of both;
+5. where one main-path call spends its device time (``torch.profiler``),
+   the sort-based ops named;
+6. the sort-based ops at full width, card against CPU bit for bit: the
+   whole-frame rank and order over the batch's ``[8, 1.2M]`` day frames,
+   the sorted segments over ``[40000, 240]``, and crafted rows (signed
+   zeros, a valid ``+inf``, both NaN signs, all-invalid rows, a
+   zero-volume day whose ``topk_sum`` is NaN on both devices);
+7. the card against the CPU on small batches at ``cn_ashare_240``,
+   ``us_390`` and ``crypto_1440``, through ``compute_batch`` and through
+   the wire (``compute_packed``), with the wire decode of crafted batches
+   at every mode of every ladder held bitwise: the CPU path is the one the
+   tests hold against the JAX package. ``doc_pdf*`` must agree exactly
+   except on lanes whose cumulative share at the crossing lies within
+   tests/test_parity.py's ``PDF_EDGE_EPS`` of the threshold.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``.
@@ -31,6 +49,7 @@ kernel; the last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ast
+import importlib.util
 import json
 import re
 import subprocess
@@ -42,6 +61,13 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
+
+#: the crafted inputs the port's tests share (tests/torch_cases.py), loaded
+#: by path: tests/ is not a package
+_CASES = importlib.util.spec_from_file_location(
+    "torch_cases", REPO / "tests" / "torch_cases.py")
+cases = importlib.util.module_from_spec(_CASES)
+_CASES.loader.exec_module(cases)
 WINDOW = 50
 TICKERS, DAYS = 5000, 8
 #: H100 SXM peaks (NVIDIA data sheet) used for the kernels' bound_ms
@@ -69,7 +95,7 @@ def parity_tables():
     script must not."""
     want = {"RTOL", "ATOL", "RTOL_OVERRIDE", "NOISE_FACTORS", "NOISE_ATOL",
             "DEGENERATE_BETA_Z", "DEGENERATE_BETA_STD", "BETA_EPS_REL",
-            "DEGENERATE_KURT"}
+            "DEGENERATE_KURT", "PDF_EDGE_EPS", "_PDF_THRESHOLDS"}
     tree = ast.parse((REPO / "tests" / "test_parity.py").read_text())
     out = {}
     for node in tree.body:
@@ -288,15 +314,47 @@ def synth_batch(n_tickers: int, n_days: int, seed: int, session=None,
             np.stack([g.mask for g in grids]))
 
 
+def zero_volume_batch():
+    """One day, two tickers: ticker 0 trades 4 bars and no volume (every
+    share 0/0; fewer valid lanes than k), ticker 1 a full ordinary day."""
+    bars = np.zeros((1, 2, 240, 5), np.float32)
+    mask = np.zeros((1, 2, 240), bool)
+    bars[..., :4] = 10.0
+    bars[:, 1, :, 4] = 100.0
+    mask[:, 0, :4] = True
+    mask[:, 1] = True
+    return bars, mask
+
+
+def pdf_edge_lanes(ctx, threshold: float, eps: float):
+    """Lanes ``[*lead, T]`` of ``ctx``'s batch whose cumulative share at the
+    ``doc_pdf`` crossing lies within ``eps`` of ``threshold``: the first
+    segment end past it, or the last one at or below it. Only there may
+    another device's f32 cumsum cross one tie group earlier or later."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops.segments import (
+        _sorted_segments)
+
+    seg = _sorted_segments(ctx.eod_ret_global_rank, ctx.vol_share, ctx.mask)
+    ends = torch.where(seg.is_end, seg.cumw, float("nan"))
+    above = torch.where(ends > threshold, ends, float("inf")).amin(dim=-1)
+    below = torch.where(ends <= threshold, ends, float("-inf")).amax(dim=-1)
+    edge = (((above - threshold).abs() <= eps)
+            | ((threshold - below).abs() <= eps))
+    return edge.cpu().numpy()
+
+
 def compare_blocks(label, names, got, ref, tables, beta, noisy=False,
-                   kurt=None):
+                   kurt=None, pdf_ctx=None):
     """Per factor: identical NaN and inf positions (and inf signs), and
     finite values within the CPU parity suite's tolerances. ``beta`` is
     the reference run's ``(mean, std, last)`` beta moments: the beta
     z-score factors skip sub-noise numerators and widen rtol as
-    tests/test_parity.py does. Returns the largest share of its
-    tolerance any compared value used, and how many factors are bitwise
-    equal."""
+    tests/test_parity.py does. With ``pdf_ctx`` (the reference run's
+    ``DayContext``) ``doc_pdf*`` must be exactly equal, except on the
+    lanes :func:`pdf_edge_lanes` finds within ``PDF_EDGE_EPS`` of the
+    threshold. Returns the largest share of its tolerance any compared
+    value used, how many factors are bitwise equal, and how many
+    ``doc_pdf*`` lanes differ at the edge."""
     got = got.double().cpu().numpy()
     ref = ref.double().cpu().numpy()
     if got.shape != ref.shape:
@@ -309,7 +367,7 @@ def compare_blocks(label, names, got, ref, tables, beta, noisy=False,
                      | (num < tables["DEGENERATE_BETA_Z"] * scale)
                      | (b_std < tables["DEGENERATE_BETA_STD"] * scale))
         beta_rtol = tables["BETA_EPS_REL"] / (num / scale)
-    worst, n_bitwise = 0.0, 0
+    worst, n_bitwise, n_edge = 0.0, 0, 0
     for i, name in enumerate(names):
         a, b = got[i], ref[i]
         n_bitwise += int(np.array_equal(a, b, equal_nan=True))
@@ -319,6 +377,17 @@ def compare_blocks(label, names, got, ref, tables, beta, noisy=False,
         if not np.array_equal(np.where(np.isinf(a), np.sign(a), 0),
                               np.where(np.isinf(b), np.sign(b), 0)):
             fail(f"{label}/{name}: inf positions or signs differ")
+        if pdf_ctx is not None and name in tables["_PDF_THRESHOLDS"]:
+            differ = ~((a == b) | (np.isnan(a) & np.isnan(b)))
+            edge = pdf_edge_lanes(pdf_ctx, tables["_PDF_THRESHOLDS"][name],
+                                  tables["PDF_EDGE_EPS"])
+            if (differ & ~edge).any():
+                j = np.flatnonzero(differ & ~edge)[0]
+                fail(f"{label}/{name}: {int((differ & ~edge).sum())} lanes "
+                     "differ away from the threshold's PDF_EDGE_EPS band "
+                     f"(first: {a.flat[j]!r} vs {b.flat[j]!r})")
+            n_edge += int(differ.sum())
+            continue
         fin = np.isfinite(b)
         rtol = np.full(b.shape, tables["RTOL_OVERRIDE"].get(
             name, tables["RTOL"]["default"]))
@@ -341,13 +410,238 @@ def compare_blocks(label, names, got, ref, tables, beta, noisy=False,
                  f"tolerance (first: {a.flat[j]!r} vs {b.flat[j]!r})")
         if fin.any():
             worst = max(worst, float(used[fin].max()))
-    return worst, n_bitwise
+    return worst, n_bitwise, n_edge
 
 
-def profile_main_path(compute_batch, bars, mask, card: str) -> None:
-    """One full-width ``compute_batch`` call under ``torch.profiler``:
-    device time by kernel (and copy) name, and the device's busy share of
-    the call's wall time (the profiler's own overhead is in that wall)."""
+def wire_path(bars, mask, card: str) -> None:
+    """Phase 4c: the batch through the ingest wire and the packed path on
+    the card; see the module docstring."""
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        compute_batch)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
+        compute_packed_prepared)
+
+    t0 = time.perf_counter()
+    enc = wire.encode(bars, mask)
+    enc_s = time.perf_counter() - t0
+    if enc is None:
+        fail("the main path's batch does not fit the wire")
+    raw_bytes = bars.nbytes + mask.nbytes
+    log(f"wire.encode {bars.shape[:-1]}: modes {enc.modes}, vol_scale "
+        f"{enc.vol_scale}; {enc.nbytes / mask.size:.4f} wire bytes a bar "
+        f"against {raw_bytes / mask.size:.4f} raw; {enc_s:.3f} s (host, "
+        "numpy)")
+    t0 = time.perf_counter()
+    packed = {"wire": wire.pack_arrays(enc.arrays)}
+    pack_w = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed["raw"] = wire.pack_arrays((bars, mask.astype(np.uint8)))
+    pack_r = time.perf_counter() - t0
+    log(f"pack_arrays: wire {packed['wire'][0].nbytes} B in {pack_w:.3f} s, "
+        f"raw {packed['raw'][0].nbytes} B in {pack_r:.3f} s (host)")
+
+    buf, spec = packed["wire"]
+    dec = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(), spec))
+    host = wire.decode(*wire.unpack(torch.from_numpy(buf), spec))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("bars", "mask"), dec, host):
+        if not cases.same_bits(a, b):
+            fail(f"wire.decode {name}: the card's bits differ from the CPU's")
+    if not np.array_equal(host[1].numpy(), mask):
+        fail("wire.decode: the mask does not round-trip")
+    log(f"wire.decode {tuple(dec[0].shape)}: card bitwise equal to CPU "
+        f"({card})")
+
+    def run(kind):
+        b, sp = packed[kind]
+        return compute_packed_prepared(b, sp, kind, device="cuda",
+                                       rolling_impl="cuda")
+
+    refs = {"wire": lambda: compute_batch(dec[0], dec[1], device="cuda",
+                                          rolling_impl="cuda"),
+            "raw": lambda: compute_batch(bars, mask, device="cuda",
+                                         rolling_impl="cuda")}
+    for kind in ("wire", "raw"):
+        torch.cuda.synchronize()
+        rolling_cuda.reset_launches()
+        out = run(kind)
+        torch.cuda.synchronize()
+        n = dict(rolling_cuda.launches)
+        if n != {"tiled": 1, "rowwise": 0}:
+            fail(f"compute_packed kind={kind} launched {n}; expected the "
+                 "tiled kernel once")
+        if not cases.same_bits(out, refs[kind]()):
+            fail(f"compute_packed kind={kind}: {tuple(out.shape)} differs "
+                 "from compute_batch on the same bars")
+        log(f"compute_packed kind={kind} {tuple(out.shape)}: launches {n}; "
+            "bitwise equal to compute_batch on the "
+            f"{'decoded' if kind == 'wire' else 'raw'} bars")
+        del out
+    del dec, host
+    walls = {"raw": [], "wire": []}
+    copies = {"raw": [], "wire": []}
+    for kind in ("raw", "wire", "wire", "raw"):
+        walls[kind] += wall_times_ms(lambda: run(kind), 5)
+        host_buf = torch.from_numpy(packed[kind][0])
+        copies[kind] += wall_times_ms(lambda: host_buf.to("cuda"), 5)
+    for kind in ("raw", "wire"):
+        log(f"compute_packed_prepared kind={kind}: wall {spread(walls[kind])}"
+            f"; host->device copy of {packed[kind][0].nbytes} B (one "
+            f"pageable buffer) {spread(copies[kind])} ({card})")
+
+
+def sort_ops_full_width(bars, mask, card: str) -> None:
+    """Phase 6: the sort-based ops at full width, card against CPU."""
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        compute_batch)
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        DayContext)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        masked_order, rank_average, topk_sum)
+    from replication_of_minute_frequency_factor_tpu_torch.ops.segments import (
+        _sorted_segments)
+
+    ctx = DayContext(torch.from_numpy(bars).cuda(),
+                     torch.from_numpy(mask).cuda())
+    frame = (ctx.eod_ret.reshape(DAYS, -1), ctx.mask.reshape(DAYS, -1))
+    host = tuple(t.cpu() for t in frame)
+    for fn in (rank_average, masked_order):
+        got = fn(*frame)
+        want = fn(*host)
+        if not cases.same_bits(got, want):
+            fail(f"{fn.__name__} {tuple(frame[0].shape)}: the card's result "
+                 "differs from the CPU's")
+        ms = cuda_times_ms(lambda: fn(*frame), iters=5, warmup=1)
+        log(f"{fn.__name__} {tuple(frame[0].shape)} (the eod_ret day "
+            f"frames): card bitwise equal to CPU; {spread(ms)} ({card})")
+    if not cases.same_bits(ctx.eod_ret_global_rank.reshape(DAYS, -1),
+                           rank_average(*host)):
+        fail("DayContext.eod_ret_global_rank differs from rank_average")
+
+    rows = (-1, bars.shape[-2])
+    for label, values in (("eod_ret", ctx.eod_ret),
+                          ("global rank", ctx.eod_ret_global_rank)):
+        args = (values.reshape(rows), ctx.vol_share.reshape(rows),
+                ctx.mask.reshape(rows))
+        seg = _sorted_segments(*args)
+        ref = _sorted_segments(*(t.cpu() for t in args))
+        for name in ("sv", "is_end"):
+            if not cases.same_bits(getattr(seg, name), getattr(ref, name)):
+                fail(f"_sorted_segments({label}) {name}: the card's result "
+                     "differs from the CPU's")
+        ends = ref.is_end
+        diff = (seg.cumw.cpu() - ref.cumw)[ends].abs()
+        diff = diff[torch.isfinite(diff)]
+        ms = cuda_times_ms(lambda: _sorted_segments(*args), iters=5,
+                           warmup=1)
+        log(f"_sorted_segments({label}) {tuple(args[0].shape)}: sorted "
+            "values and segment ends bitwise equal card vs CPU; cumulative "
+            f"shares at segment ends max |diff| {float(diff.max()):.3e} (f32 "
+            f"scans in two orders); {spread(ms)} ({card})")
+    del ctx, frame, host, seg, ref
+
+    x, m = cases.crafted_rows()
+    xt, mt = torch.from_numpy(x), torch.from_numpy(m)
+    for fn in (rank_average, masked_order):
+        if not cases.same_bits(fn(xt.cuda(), mt.cuda()), fn(xt, mt)):
+            fail(f"{fn.__name__} on the crafted rows: card differs from CPU")
+    zb, zm = zero_volume_batch()
+    names = ("doc_vol5_ratio", "doc_vol10_ratio", "doc_vol50_ratio")
+    for dev in ("cuda", "cpu"):
+        out = compute_batch(zb, zm, names=names, device=dev)
+        share = torch.zeros(4, device=dev) / torch.zeros(4, device=dev).sum()
+        ones = torch.ones(4, dtype=torch.bool, device=dev)
+        nans = [bool(torch.isnan(v)) for v in (
+            *out[:, 0, 0], topk_sum(share, ones, 5),
+            topk_sum(-share, ones, 5))]
+        if not all(nans) or not bool(torch.isfinite(out[:, 0, 1]).all()):
+            fail(f"topk_sum on the zero-volume day ({dev}): {out[:, 0]}")
+    log("crafted rows (signed zeros, valid +-inf, +NaN and -NaN lanes, an "
+        "all-invalid row): rank_average and masked_order bitwise equal card "
+        "vs CPU; a zero-volume day with fewer valid bars than k: topk_sum "
+        "and doc_vol*_ratio NaN on both devices, whatever the NaN's sign")
+
+
+def card_vs_cpu(tables, names, card: str) -> int:
+    """Phase 7: small batches at three sessions through ``compute_batch``
+    and through the wire, card against CPU; the wire decode of crafted
+    batches at every rung of every ladder. Returns the ``doc_pdf*`` lanes
+    that differed at the threshold's edge."""
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        compute_batch, compute_packed)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.markets import (
+        get_session)
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        DayContext)
+
+    n_edge = 0
+    for sess, seed in (("cn_ashare_240", 7), ("us_390", 8),
+                       ("crypto_1440", 9)):
+        spec = get_session(sess)
+        sb, sm = synth_batch(16, 2, seed=seed, session=sess,
+                             missing_prob=0.05, zero_volume_prob=0.05,
+                             constant_price_codes=2, short_day_codes=2)
+        enc = wire.encode(sb, sm)
+        if enc is None:
+            fail(f"{sess}: the small batch does not fit the wire")
+        buf, wspec = wire.pack_arrays(enc.arrays)
+        dec = wire.decode(*wire.unpack(torch.from_numpy(buf), wspec))
+        for path, inputs, run in (
+                ("compute_batch", (torch.from_numpy(sb), torch.from_numpy(sm)),
+                 lambda dev: compute_batch(sb, sm, session=sess, device=dev,
+                                           rolling_impl="cuda")),
+                ("compute_packed(wire)", dec,
+                 lambda dev: compute_packed(enc.arrays, "wire", session=sess,
+                                            device=dev,
+                                            rolling_impl="cuda"))):
+            got, want = run("cuda"), run("cpu")
+            cctx = DayContext(*inputs, rolling_impl="torch", session=spec)
+            kurt = {n: want[names.index(n)].double().numpy()
+                    for n in ("shape_kurt", "shape_kurtVol")}
+            worst, n_bitwise, edge = compare_blocks(
+                f"card-vs-cpu/{sess}/{path}", names, got, want, tables,
+                cctx.beta_moments()[:3], noisy=True, kurt=kurt, pdf_ctx=cctx)
+            n_edge += edge
+            log(f"card vs CPU {sess} {path} {tuple(got.shape)}: agree "
+                f"({n_bitwise} bitwise equal; worst value used {worst:.2e} "
+                f"of its tolerance; {edge} doc_pdf lanes differ inside the "
+                "PDF_EDGE_EPS band)")
+        seen = []
+        for i, case in enumerate(cases.WIRE_MODE_CASES):
+            cb, cm = cases.wire_mode_case(seed * 10 + i, spec.n_slots, *case)
+            enc = wire.encode(cb, cm)
+            want_modes = cases.expected_wire_modes(spec.n_slots, *case)
+            if enc is None or enc.modes != want_modes:
+                fail(f"{sess}: crafted batch {case} encoded at "
+                     f"{enc and enc.modes}, expected {want_modes}")
+            buf, wspec = wire.pack_arrays(enc.arrays)
+            got = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(),
+                                           wspec))
+            want = wire.decode(*wire.unpack(torch.from_numpy(buf), wspec))
+            if not (cases.same_bits(got[0], want[0])
+                    and cases.same_bits(got[1], want[1])
+                    and np.array_equal(want[1].numpy(), cm)):
+                fail(f"{sess}: wire.decode at modes {enc.modes} differs "
+                     "card vs CPU")
+            seen.append(tuple(enc.modes.values()))
+        log(f"wire.decode {sess} at (dclose, ohl, volume) modes {seen}: card "
+            "bitwise equal to CPU")
+    return n_edge
+
+
+#: substrings of the ATen ops the profile sums as the sort-based ops
+SORT_OPS = ("sort", "topk", "searchsorted", "cumsum", "cummax")
+
+
+def profile_main_path(label: str, fn, card: str) -> None:
+    """One full-width main-path call, ``fn()``, under ``torch.profiler``:
+    device time by kernel (and copy) name and by ATen op, the sort-based
+    ops' share, and the device's busy share of the call's wall time (the
+    profiler's own overhead is in that wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -355,7 +649,7 @@ def profile_main_path(compute_batch, bars, mask, card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        compute_batch(bars, mask, device="cuda", rolling_impl="cuda")
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only; CUPTI's own buffer bookkeeping is no work
@@ -373,7 +667,7 @@ def profile_main_path(compute_batch, bars, mask, card: str) -> None:
         else:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
-    log(f"profile: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({busy / wall_us:.1%}), idle "
         f"{1 - busy / wall_us:.1%}, {len(events)} device events ({card})")
     # by device kernel/copy name, then by the torch op that launched it
@@ -391,19 +685,27 @@ def profile_main_path(compute_batch, bars, mask, card: str) -> None:
     for kind, table in (("kernel", by_kernel), ("op", by_op)):
         for key, (us, n) in sorted(table.items(),
                                    key=lambda kv: -kv[1][0])[:12]:
-            log(f"profile {kind}: {us / 1e3:8.3f} ms {us / busy:6.1%} "
-                f"x{n:<4d} {key}")
+            log(f"profile {label} {kind}: {us / 1e3:8.3f} ms {us / busy:6.1%}"
+                f" x{n:<4d} {key}")
+    sorts = {k: v for k, v in by_op.items()
+             if any(p in k for p in SORT_OPS)}
+    for key, (us, n) in sorted(sorts.items(), key=lambda kv: -kv[1][0]):
+        log(f"profile {label} sort-based op: {us / 1e3:8.3f} ms "
+            f"{us / busy:6.1%} x{n:<4d} {key}")
+    total = sum(us for us, _ in sorts.values())
+    log(f"profile {label}: sort-based ops ({', '.join(SORT_OPS)}) "
+        f"{total / 1e3:.3f} ms, {total / busy:.1%} of device busy time")
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke needs an NVIDIA GPU")
     from replication_of_minute_frequency_factor_tpu_torch import (
-        compute_batch, kernels)
-    from replication_of_minute_frequency_factor_tpu_torch.markets import (
-        get_session)
+        compute_batch, kernels, wire)
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         DayContext, factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
+        compute_packed_prepared)
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
         rolling, rolling_cuda)
 
@@ -514,8 +816,8 @@ def main() -> None:
     ctx = DayContext(torch.from_numpy(bars).cuda(),
                      torch.from_numpy(mask).cuda(), rolling_impl="torch")
     beta = ctx.beta_moments()[:3]
-    worst, n_bitwise = compare_blocks("cuda-vs-torch", names, out, ref,
-                                      tables, beta)
+    worst, n_bitwise, _ = compare_blocks("cuda-vs-torch", names, out, ref,
+                                         tables, beta)
     log(f"compute_batch rolling_impl=torch: wall {spread(walls_plain)}; "
         f"all {len(names)} factors agree with the kernel run (NaN/inf "
         f"positions identical; {n_bitwise} bitwise equal; worst value used "
@@ -549,27 +851,27 @@ def main() -> None:
         f"{int(v.sum())} valid lanes ({card})")
     del low, high, present, st, ref_st, v
 
-    # 5. where the main path's device time goes
-    profile_main_path(compute_batch, bars, mask, card)
+    # 4c. the packed path: the ingest wire and the raw buffer
+    wire_path(bars, mask, card)
 
-    # 6. the card against the CPU on a small batch, both sessions' shapes
-    for sess, seed in (("cn_ashare_240", 7), ("us_390", 8)):
-        sb, sm = synth_batch(16, 2, seed=seed, session=sess,
-                             missing_prob=0.05, zero_volume_prob=0.05,
-                             constant_price_codes=2, short_day_codes=2)
-        got = compute_batch(sb, sm, session=sess, device="cuda",
-                            rolling_impl="cuda")
-        want = compute_batch(sb, sm, session=sess, device="cpu")
-        cctx = DayContext(torch.from_numpy(sb), torch.from_numpy(sm),
-                          rolling_impl="torch", session=get_session(sess))
-        kurt = {n: want[names.index(n)].double().numpy()
-                for n in ("shape_kurt", "shape_kurtVol")}
-        worst, n_bitwise = compare_blocks(
-            f"card-vs-cpu/{sess}", names, got, want, tables,
-            cctx.beta_moments()[:3], noisy=True, kurt=kurt)
-        log(f"card vs CPU {sess} {tuple(got.shape)}: agree ({n_bitwise} "
-            f"bitwise equal; worst value used {worst:.2e} of its "
-            "tolerance)")
+    # 5. where the main path's device time goes, raw bars and the wire
+    profile_main_path("compute_batch", lambda: compute_batch(
+        bars, mask, device="cuda", rolling_impl="cuda"), card)
+    buf, spec = wire.pack_arrays(wire.encode(bars, mask).arrays)
+    profile_main_path("compute_packed_prepared(wire)", lambda:
+                      compute_packed_prepared(buf, spec, "wire",
+                                              device="cuda",
+                                              rolling_impl="cuda"), card)
+    del buf, spec
+
+    # 6. the sort-based ops at full width, card against CPU
+    sort_ops_full_width(bars, mask, card)
+    del bars, mask
+
+    # 7. the card against the CPU on small batches at three sessions
+    n_edge = card_vs_cpu(tables, names, card)
+    log(f"card vs CPU: {n_edge} doc_pdf lanes in all differed, each inside "
+        f"the PDF_EDGE_EPS = {tables['PDF_EDGE_EPS']} band")
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"

@@ -7,10 +7,13 @@ JAX package's Pallas TPU kernel rewritten by hand for Hopper (``csrc/``).
 It imports neither jax nor the JAX package.
 
 Ported so far: session specs, pins and config, gridding and synthetic
-days, the masked/top-k/rolling ops, ``DayContext`` and 47 of the 58
-factors (all but the chip family), with :func:`compute_batch` as the
-batch entry point. Entry points run on the card unless the caller passes
+days, the ingest wire (:mod:`.data.wire`: numpy encoder, device decode),
+the masked/rank/top-k/segment/rolling ops, ``DayContext`` and all 58
+factors, with two batch entry points: :func:`compute_batch` (bars and
+mask) and :func:`compute_packed` (one packed wire or raw buffer, decoded
+on the device). Entry points run on the card unless the caller passes
 ``device='cpu'``.
 """
 
-from .pipeline import compute_batch  # noqa: F401
+from .data import wire  # noqa: F401
+from .pipeline import compute_batch, compute_packed  # noqa: F401

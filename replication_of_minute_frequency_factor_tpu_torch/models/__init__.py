@@ -14,3 +14,7 @@ from .registry import (  # noqa: F401
     register,
     resolve,
 )
+
+# registration, in the reference file's order
+from . import (  # noqa: F401,E402
+    momentum, volatility, shape, liquidity, pv_corr, chip, trade_flow)

@@ -3,9 +3,9 @@
 The reference recomputes returns/shares/rolling stats inside every kernel
 (one polars pass per factor). Here every intermediate is computed at most
 once per day tensor and shared by all factors that need it. The port of
-the JAX package's ``models/context.py``; the whole-frame rank
-(``eod_ret_global_rank``), sharded-axis collectives (``xs_axis_name``) and
-streaming injection (``inject``) come with later slices and raise here.
+the JAX package's ``models/context.py``; sharded-axis collectives
+(``xs_axis_name``) and streaming injection (``inject``) come with later
+slices and raise here.
 
 Field layout follows :mod:`..data.minute` (open, high, low, close, volume).
 """
@@ -22,6 +22,7 @@ from ..ops import (
     masked_std,
     masked_sum,
     pct_change_valid,
+    rank_average,
     rolling_window_stats,
 )
 
@@ -135,10 +136,31 @@ class DayContext:
             "vol_share", lambda: self.volume / self.vol_sum[..., None])
 
     @property
+    def last_close(self):
+        """Last present bar's close, ``[..., T]`` — the end-of-day anchor
+        of the chip family."""
+        return self._get("last_close",
+                         lambda: masked_last(self.close, self.mask))
+
+    @property
+    def eod_ret(self):
+        """last present close / close per bar — the chip factors' 'return'
+        (reference MinuteFrequentFactorCalculateMethodsCICC.py:946-947)."""
+        return self._get("eod_ret",
+                         lambda: self.last_close[..., None] / self.close)
+
+    @property
     def eod_ret_global_rank(self):
-        raise NotImplementedError(
-            "eod_ret_global_rank (the chip factors' whole-frame rank) is "
-            "not ported yet")
+        """Average-tie rank of ``eod_ret`` across the ENTIRE day frame
+        (all tickers x slots, one rank per day), matching the reference's
+        whole-frame ``.rank()`` in the ``doc_pdf*`` kernels (:1016) — the
+        rank there is *not* per stock."""
+        def f():
+            v, m = self.eod_ret, self.mask
+            flat = v.shape[:-2] + (v.shape[-2] * v.shape[-1],)
+            return rank_average(v.reshape(flat),
+                                m.reshape(flat)).reshape(v.shape)
+        return self._get("eod_grank", f)
 
     @property
     def rolling50(self):

@@ -6,7 +6,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from .context import DayContext
 
-#: name -> kernel(ctx) -> [..., T], in the reference file's order
+#: name -> kernel(ctx) -> [..., T], in the reference file's order (the
+#: package's ``__init__`` imports the families in that order, whichever
+#: module is imported first)
 FACTORS: Dict[str, Callable] = {}
 
 
@@ -17,22 +19,14 @@ def register(name: str):
     return deco
 
 
-def _load_all():
-    # import for registration side effects (ordered as the reference file;
-    # the chip family comes with a later slice)
-    from . import momentum, volatility, shape, liquidity, pv_corr, trade_flow  # noqa: F401
-
-
 def resolve(name: str) -> Callable:
-    _load_all()
     try:
         return FACTORS[name]
     except KeyError:
-        raise KeyError(f"unknown or not yet ported factor {name!r}") from None
+        raise KeyError(f"unknown factor {name!r}") from None
 
 
 def factor_names() -> Tuple[str, ...]:
-    _load_all()
     return tuple(FACTORS)
 
 
@@ -40,8 +34,7 @@ def compute_factors(bars, mask, names: Optional[Sequence[str]] = None,
                     replicate_quirks: bool = True,
                     rolling_impl: Optional[str] = None,
                     session=None):
-    """Compute the named factors (default: every ported one) over a day
-    tensor.
+    """Compute the named factors (default: all 58) over a day tensor.
 
     ``bars [..., T, S, 5]`` f32 and ``mask [..., T, S]`` bool, on one
     device; returns ``{name: [..., T]}`` on that device.
@@ -50,7 +43,6 @@ def compute_factors(bars, mask, names: Optional[Sequence[str]] = None,
     ``session`` (a ``markets.SessionSpec`` or registry name; None is
     ``cn_ashare_240``) sets the day shape and the sentinel boundaries.
     """
-    _load_all()
     if names is None:
         names = tuple(FACTORS)
     ctx = DayContext(bars, mask, replicate_quirks=replicate_quirks,

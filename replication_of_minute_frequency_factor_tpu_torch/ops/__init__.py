@@ -24,5 +24,15 @@ from .masked import (  # noqa: F401
     pct_change_valid,
     shift_valid,
 )
-from .ranking import bottomk_threshold, topk_threshold  # noqa: F401
+from .ranking import (  # noqa: F401
+    bottomk_threshold,
+    masked_order,
+    rank_average,
+    topk_sum,
+    topk_threshold,
+)
 from .rolling import rolling_window_stats  # noqa: F401
+from .segments import (  # noqa: F401
+    pdf_quantile_rank,
+    segment_stats_by_value,
+)

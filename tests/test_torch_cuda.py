@@ -2,7 +2,9 @@
 
 Every test here skips without a CUDA device: the kernels have no CPU mode.
 Window 50 runs the tiled kernel, any other window the rowwise one; the
-two give the same bits.
+two give the same bits. The wire decode and the sort-based ops are plain
+torch, held card against CPU bit for bit (the CPU path is the one the
+other tests hold against the JAX package).
 The module imports neither jax nor the JAX package, so on a machine with
 the card and without jax the tests run alone, past the jax set-up in
 conftest.py:
@@ -10,11 +12,20 @@ conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
+from replication_of_minute_frequency_factor_tpu_torch import (
+    compute_batch, compute_packed)
+from replication_of_minute_frequency_factor_tpu_torch.data import wire
+from replication_of_minute_frequency_factor_tpu_torch.ops import (
+    masked_order, rank_average)
 from replication_of_minute_frequency_factor_tpu_torch.ops import rolling
 from replication_of_minute_frequency_factor_tpu_torch.ops import rolling_cuda
+from torch_cases import (
+    WIRE_MODE_CASES, crafted_rows, expected_wire_modes, same_bits,
+    wire_mode_case)
 
 W = 50
 
@@ -38,10 +49,6 @@ def _launched(before):
     return {k: n - before[k] for k, n in rolling_cuda.launches.items()}
 
 
-def _same_bits(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length", [(8 * 5000, 240), (4001, 390),
                                          (4001, 150), (3, 1440), (5, 40)])
@@ -59,7 +66,7 @@ def test_kernel_matches_plain_on_the_card(rows, length):
     assert _launched(before) == {"tiled": 1, "rowwise": 1}
     plain = rolling_cuda.second_moments_plain(*args, W)
     for a, b, c in zip(got, base, plain):
-        assert _same_bits(a, b)
+        assert same_bits(a, b)
         torch.testing.assert_close(a[valid], c[valid], rtol=1e-5, atol=1e-9)
 
 
@@ -93,7 +100,7 @@ def test_tiled_kernel_refuses_a_misaligned_view():
     assert _launched(before) == {"tiled": 0, "rowwise": 0}
     got = rolling_cuda._second_moments_rowwise(view, *args[1:], W)
     for a, b in zip(got, rolling_cuda.second_moments(*args, W)):
-        assert _same_bits(a, b)
+        assert same_bits(a, b)
 
 
 @pytest.mark.cuda
@@ -111,3 +118,49 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="one CUDA device"):
         rolling_cuda.second_moments(args[0].cpu(), *args[1:], W)
     assert rolling_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [240, 390, 1440])
+@pytest.mark.parametrize("case", WIRE_MODE_CASES)
+def test_wire_decode_card_equals_cpu(n_slots, case):
+    """Every rung of every ladder (u16 volume and the mask's pad bits at
+    390 slots included) decodes to the same bits on the card."""
+    _card()
+    bars, mask = wire_mode_case(n_slots + sum(case), n_slots, *case)
+    enc = wire.encode(bars, mask)
+    assert enc.modes == expected_wire_modes(n_slots, *case)
+    buf, spec = wire.pack_arrays(enc.arrays)
+    got = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(), spec))
+    want = wire.decode(*wire.unpack(torch.from_numpy(buf), spec))
+    assert got[0].is_cuda
+    assert same_bits(got[0], want[0]) and same_bits(got[1], want[1])
+    assert np.array_equal(want[1].numpy(), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [64, 2 * 240 * 500])
+def test_rank_average_card_equals_cpu(lanes):
+    """Crafted rows (signed zeros, +-inf, both NaN signs, an all-invalid
+    row) and long tie-heavy frames rank and order alike on the card."""
+    _card()
+    x, mask = crafted_rows()
+    if lanes != x.shape[-1]:
+        rng = np.random.default_rng(lanes)
+        x = (rng.integers(0, 4000, (2, lanes)) / 1000).astype(np.float32)
+        mask = rng.random((2, lanes)) < 0.95
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    for fn in (rank_average, masked_order):
+        assert same_bits(fn(xt.cuda(), mt.cuda()), fn(xt, mt))
+
+
+@pytest.mark.cuda
+def test_compute_packed_targets_the_card():
+    _card()
+    bars, mask = wire_mode_case(7, 240, 1, 1, 4)
+    enc = wire.encode(bars, mask)
+    got = compute_packed(enc.arrays, "wire")
+    assert got.is_cuda and got.shape == (58, 2, 6)
+    buf, spec = wire.pack_arrays(enc.arrays)
+    dec = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(), spec))
+    assert same_bits(got, compute_batch(*dec))

@@ -1,4 +1,4 @@
-"""The port's 47 factors vs the JAX package's, per factor, through the
+"""The port's 58 factors vs the JAX package's, per factor, through the
 batch entry point.
 
 ``compute_batch(..., device='cpu')`` against JAX ``compute_factors_jit``
@@ -12,7 +12,11 @@ NaN and inf positions must be exactly equal. Values are held by
 tests/test_parity.py's own comparator (``_check``: its RTOL/ATOL/
 RTOL_OVERRIDE tables, its noise floor on the scenarios it calls noisy,
 its degenerate-kurtosis skip of the skew/kurt ratios) with the JAX value
-in the reference's place. The beta z-score pair (``mmt_ols_qrs``,
+in the reference's place. ``doc_pdf*`` goes through test_parity's
+``_check_cell``: a rank off the JAX one by more than its slack passes only
+if it is one of the day's acceptance set (``_doc_pdf_acceptable``: the
+f64 oracle's walk at the threshold and at threshold +/- PDF_EDGE_EPS, over
+f64, f32-quantised and device returns). The beta z-score pair (``mmt_ols_qrs``,
 ``mmt_ols_beta_zscore_last``) skips the codes whose f64 beta z numerator
 is sub-noise, and widens rtol just above that cutoff, exactly as
 tests/test_parity.py:98-122 does (``_degenerate_beta_codes``).
@@ -31,7 +35,8 @@ from replication_of_minute_frequency_factor_tpu_torch import compute_batch
 from replication_of_minute_frequency_factor_tpu_torch import data as tdata
 from replication_of_minute_frequency_factor_tpu_torch.models import (
     factor_names)
-from test_parity import _check, _degenerate_beta_codes
+from test_parity import (
+    _check, _check_cell, _degenerate_beta_codes, _doc_pdf_acceptable, _lazy)
 
 N_CODES, N_DAYS = 10, 2
 BETA_Z = ("mmt_ols_qrs", "mmt_ols_beta_zscore_last")
@@ -86,19 +91,23 @@ def scenario(request):
                for impl, out in jax_out.items()}
     beta = [_degenerate_beta_codes(pd.DataFrame(d), session=session)
             for d in days]
-    return request.param, names, codes, port, jax_out, beta, noisy
+    pdf = [_lazy(lambda d=d: _doc_pdf_acceptable(pd.DataFrame(d),
+                                                 session=session))
+           for d in days]
+    return request.param, names, codes, port, jax_out, beta, pdf, noisy
 
 
 def test_port_names_are_the_reference_order_minus_the_chip_family():
+    """Since the chip family was ported the port's names are the JAX
+    package's 58, in its order."""
     names = factor_names()
-    assert len(names) == 47
-    assert names == tuple(n for n in jax_factor_names()
-                          if not n.startswith("doc_"))
+    assert len(names) == 58
+    assert names == tuple(jax_factor_names())
 
 
 @pytest.mark.parametrize("impl", ["pallas_interpret", "conv"])
 def test_factors_match_jax(scenario, impl):
-    label, names, codes, port, jax_out, beta, noisy = scenario
+    label, names, codes, port, jax_out, beta, pdf, noisy = scenario
     ref = jax_out[impl]
     assert port.shape == ref.shape == (len(names), N_DAYS, len(codes))
     failures = []
@@ -117,8 +126,8 @@ def test_factors_match_jax(scenario, impl):
                 aux = {k: ref[names.index(k), d, t]
                        for k in ("shape_kurt", "shape_kurtVol")}
                 aux["beta_num_scale"] = num_scale.get(code)
-                _check(f"{label}/{impl}/d{d}", name, code, b[d, t], a[d, t],
-                       noisy, failures, aux=aux)
+                _check_cell(f"{label}/{impl}/d{d}", name, code, b[d, t],
+                            a[d, t], noisy, failures, aux, pdf[d])
     assert not failures, "\n".join(failures[:40])
 
 
@@ -153,7 +162,7 @@ def test_compute_batch_takes_tensors_and_casts_f64():
     assert a.dtype == b.dtype == torch.float32
     torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
     one = compute_batch(bars[0], mask[0], device="cpu")
-    assert one.shape == (47, N_CODES)
+    assert one.shape == (58, N_CODES)
     with pytest.raises(ValueError, match="slots per day"):
         compute_batch(bars, mask, session="us_390", device="cpu")
     with pytest.raises(ValueError, match="day batch"):

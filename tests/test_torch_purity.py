@@ -28,7 +28,8 @@ def _forbidden(module: str) -> bool:
 
 
 def _port_files():
-    return sorted([*PORT_DIR.rglob("*.py"), REPO / "chip_smoke.py"])
+    return sorted([*PORT_DIR.rglob("*.py"), REPO / "chip_smoke.py",
+                   REPO / "tests" / "torch_cases.py"])
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -79,7 +80,22 @@ def test_compute_batch_refuses_the_cpu_unless_asked(monkeypatch):
         compute_batch(bars, mask)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compute_batch(bars, mask, device="cuda")
-    assert compute_batch(bars, mask, device="cpu").shape == (47, 1, 2)
+    assert compute_batch(bars, mask, device="cpu").shape == (58, 1, 2)
+
+
+def test_compute_packed_refuses_the_cpu_unless_asked(monkeypatch):
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        compute_packed, wire)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bars = np.full((1, 2, 240, 5), 10.0, np.float32)
+    mask = np.ones((1, 2, 240), bool)
+    arrays = wire.encode(bars, mask).arrays
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_packed(arrays, "wire")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compute_packed((bars, mask.astype(np.uint8)), "raw", device="cuda")
+    assert compute_packed(arrays, "wire", device="cpu").shape == (58, 1, 2)
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():
