@@ -11,9 +11,11 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    together), with ptxas' register/shared-memory report, which must show
    no spills;
 3. kernels vs their plain torch versions on the card, at the main path's
-   shapes and at every registered slot count, and the tiled second-moment
-   kernel bit for bit against the rowwise one; both timed in turns with
-   CUDA events at the 240/390/1440-slot shapes;
+   shapes (the host driver's padded batch among them) and at every
+   registered slot count, and the tiled second-moment kernel bit for bit
+   against the rowwise one; both timed in turns with CUDA events at the
+   240/390/1440-slot shapes, and each in turns with its plain version at
+   the shape and window of the path whose launches the kernels line counts;
 4. the main path at full width — ``synth_day`` → ``grid_day`` →
    ``compute_batch`` for all 58 factors, 5000 tickers x 8 days on
    ``cn_ashare_240`` — through the tiled kernel (launch counts reset just
@@ -40,7 +42,20 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    at every mode of every ladder held bitwise: the CPU path is the one the
    tests hold against the JAX package. ``doc_pdf*`` must agree exactly
    except on lanes whose cumulative share at the crossing lies within
-   tests/test_parity.py's ``PDF_EDGE_EPS`` of the threshold.
+   tests/test_parity.py's ``PDF_EDGE_EPS`` of the threshold;
+8. the host driver at full width: ``compute_exposures`` over 5000 tickers
+   x 40 trading days of int-coded parquet day files (``synth_day`` with
+   the main path's recipe, written before the timed run), all 58 factors,
+   eight days a batch: five tiled launches, the native grid and wire
+   encoder on every batch (the native encoding byte-identical to numpy's,
+   both timed), every row bit for bit ``compute_batch`` on its batch's
+   decoded bars, and that batch, pad lanes included, held against the
+   plain rolling version at the parity suite's tolerances; a resume over 8 more days that computes only those and
+   keeps every old row's bits; a run over all 48 days from an empty cache
+   with one injected launch failure that loses no day and gives the same
+   bits, under ``torch.profiler`` for the device's idle share; the pinned
+   copy timed against a pageable one. It needs ``pyarrow`` and fails
+   without it.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``.
@@ -51,6 +66,7 @@ from __future__ import annotations
 import ast
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -175,11 +191,14 @@ def spread(samples) -> str:
             f"max {max(samples):.4f}, n={len(samples)})")
 
 
-def moment_case(rows: int, L: int, seed: int, window: int = WINDOW):
+def moment_case(rows: int, L: int, seed: int, window: int = WINDOW,
+                pad=None):
     """Second-moment inputs at ``[rows, L]`` on the card, made the way the
     main path makes them: a close random walk, low/high at -/+0.1%, 5%
     missing bars, row 0 full and row 1 full and constant (where there are
-    two rows)."""
+    two rows). With ``pad = (Tp, n)`` the rows are days of ``Tp`` tickers
+    whose lanes from ``n`` on are the host driver's bucket pads: no bar,
+    zero prices."""
     from replication_of_minute_frequency_factor_tpu_torch.ops import rolling
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -189,6 +208,10 @@ def moment_case(rows: int, L: int, seed: int, window: int = WINDOW):
     mask = torch.rand(rows, L, generator=g, device="cuda") > 0.05
     mask[:2] = True
     low[1], high[1] = low[1, 0], high[1, 0]
+    if pad is not None:
+        tp, n = pad
+        for t in (mask, low, high):
+            t.view(-1, tp, L)[:, n:] = 0
     valid = rolling._windowed_sum(mask, window) > window - 0.5
     return rolling.second_moment_inputs(low, high, mask, window), valid
 
@@ -223,14 +246,16 @@ def hold_to_plain(label, got, want, valid, rtol, atol):
     return err
 
 
-def check_moments(rows: int, L: int, seed: int, rtol=1e-5, atol=1e-9):
+def check_moments(rows: int, L: int, seed: int, rtol=1e-5, atol=1e-9,
+                  pad=None):
     """The tiled kernel (through the wrapper) vs the plain version on
     valid lanes, and bit for bit vs the rowwise kernel on every lane (so
-    the two share one max_abs_err). Returns (inputs, max_abs_err)."""
+    the two share one max_abs_err); ``pad`` as in :func:`moment_case`.
+    Returns (inputs, max_abs_err)."""
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
         rolling_cuda)
 
-    args, valid = moment_case(rows, L, seed)
+    args, valid = moment_case(rows, L, seed, pad=pad)
     before = dict(rolling_cuda.launches)
     got = rolling_cuda.second_moments(*args, WINDOW)
     base = rolling_cuda._second_moments_rowwise(*args, WINDOW)
@@ -247,8 +272,16 @@ def check_moments(rows: int, L: int, seed: int, rtol=1e-5, atol=1e-9):
     want = rolling_cuda.second_moments_plain(*args, WINDOW)
     label = f"second_moments {rows}x{L}"
     err = hold_to_plain(label, got, want, valid, rtol, atol)
-    log(f"kernel second_moments rows={rows} L={L}: tiled bitwise equal to "
-        f"rowwise on all {3 * rows * L} lanes; max_abs_err={err:.3e} vs "
+    if pad is not None:
+        tp, n = pad
+        for name, a, b in zip(("s_xx", "s_yy", "s_xy"), got, want):
+            if not torch.equal(a.view(-1, tp, L)[:, n:],
+                               b.view(-1, tp, L)[:, n:]):
+                fail(f"{label}: {name} on the pad rows differs from the "
+                     "plain version")
+    pads = f" ({rows // pad[0] * (pad[0] - pad[1])} pad rows)" if pad else ""
+    log(f"kernel second_moments rows={rows}{pads} L={L}: tiled bitwise equal"
+        f" to rowwise on all {3 * rows * L} lanes; max_abs_err={err:.3e} vs "
         f"plain (rtol {rtol}, atol {atol} on {int(valid.sum())} valid "
         "lanes) ok")
     return args, err
@@ -257,7 +290,8 @@ def check_moments(rows: int, L: int, seed: int, rtol=1e-5, atol=1e-9):
 def check_other_window(rows: int, L: int, seed: int, rtol=1e-5,
                        atol=1e-9):
     """A window other than 50 through the wrapper: one rowwise launch, no
-    tiled one, within rtol/atol of the plain version on valid lanes."""
+    tiled one, within rtol/atol of the plain version on valid lanes.
+    Returns (inputs, max_abs_err)."""
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
         rolling_cuda)
 
@@ -273,15 +307,17 @@ def check_other_window(rows: int, L: int, seed: int, rtol=1e-5,
                         got, want, valid, rtol, atol)
     log(f"kernel second_moments window={OTHER_WINDOW} rows={rows} L={L}: "
         f"one rowwise launch; max_abs_err={err:.3e} vs plain ok")
+    return args, err
 
 
-def time_moments(rows: int, L: int, card: str):
+def time_moments(rows: int, L: int, card: str, pad=None):
     """The rowwise and tiled kernels at ``[rows, L]`` in turns (rowwise,
-    tiled, tiled, rowwise); returns {kernel: per-launch ms samples}."""
+    tiled, tiled, rowwise); ``pad`` as in :func:`moment_case`; returns
+    {kernel: per-launch ms samples}."""
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
         rolling_cuda)
 
-    args, _ = moment_case(rows, L, seed=rows + L + 1)
+    args, _ = moment_case(rows, L, seed=rows + L + 1, pad=pad)
     fns = {"tiled": lambda: rolling_cuda.second_moments(*args, WINDOW),
            "rowwise": lambda: rolling_cuda._second_moments_rowwise(
                *args, WINDOW)}
@@ -425,7 +461,7 @@ def wire_path(bars, mask, card: str) -> None:
         compute_packed_prepared)
 
     t0 = time.perf_counter()
-    enc = wire.encode(bars, mask)
+    enc = wire.encode(bars, mask, use_native=False)
     enc_s = time.perf_counter() - t0
     if enc is None:
         fail("the main path's batch does not fit the wire")
@@ -697,11 +733,376 @@ def profile_main_path(label: str, fn, card: str) -> None:
         f"{total / 1e3:.3f} ms, {total / busy:.1%} of device busy time")
 
 
+#: phase 8: trading days of the timed run, days the resume adds
+DRIVER_DAYS, RESUME_DAYS = 40, 8
+DAYS_PER_BATCH = 8
+
+
+def trading_dates(n: int):
+    """``n`` weekdays from 2024-01-02."""
+    days = np.arange(np.datetime64("2024-01-02"),
+                     np.datetime64("2024-01-02") + 3 * n)
+    weekday = (days.astype("datetime64[D]").view("int64") - 4) % 7
+    return [str(d) for d in days[weekday < 5][:n]]
+
+
+def write_day_file(path: Path, date: str, n_tickers: int, seed: int,
+                   synth: dict) -> None:
+    """One int-coded minute-bar parquet: ``synth_day`` from ``seed``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        synth_day)
+
+    d = synth_day(np.random.default_rng(seed), n_codes=n_tickers, date=date,
+                  **synth)
+    cols = {"code": pa.array(d["code"].astype(np.int64))}
+    for k in ("time", "open", "high", "low", "close", "volume"):
+        cols[k] = pa.array(d[k])
+    pq.write_table(pa.table(cols), path)
+
+
+def write_day_files(days, n_tickers: int, **synth) -> float:
+    """One int-coded minute-bar parquet per ``(directory, date, seed)`` of
+    ``days``, at ``directory/YYYYMMDD.parquet``; written by a pool of
+    spawned processes, since synthesis holds the GIL. Returns the seconds
+    it took."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    for directory in {d for d, _, _ in days}:
+        directory.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    workers = max(1, min(len(days), os.cpu_count() or 1, 8))
+    with cf.ProcessPoolExecutor(workers,
+                                mp_context=mp.get_context("spawn")) as ex:
+        list(ex.map(write_day_file,
+                    [d / (date.replace("-", "") + ".parquet")
+                     for d, date, _ in days], [date for _, date, _ in days],
+                    [n_tickers] * len(days), [s for _, _, s in days],
+                    [synth] * len(days)))
+    return time.perf_counter() - t0
+
+
+def driver_batches(minute_dir, days_per_batch: int, dates=None):
+    """The batches ``compute_exposures`` makes of a directory, rebuilt as
+    it builds them: ``(dates, bars, mask, codes, present)`` per batch of
+    ``days_per_batch`` day files (only those in ``dates`` when given)."""
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.data import io
+
+    files = [(d, p) for d, p in io.list_day_files(str(minute_dir))
+             if dates is None or str(d) in dates]
+    for i in range(0, len(files), days_per_batch):
+        days = [(d, io.read_minute_day_raw(p))
+                for d, p in files[i:i + days_per_batch]]
+        bars, mask, codes, present = pipeline._grid_batch(days)
+        yield [d for d, _ in days], bars, mask, codes, present
+
+
+def table_block(table, dates, codes, present, names):
+    """The rows of ``table`` for one batch as ``[F, D, Tp]`` f32, zero on
+    the lanes ``present`` leaves out; fails unless the batch's rows are
+    exactly its present codes in the axis order."""
+    block = np.zeros((len(names),) + present.shape, np.float32)
+    tdate = table.columns["date"]
+    for i, date in enumerate(dates):
+        rows = np.flatnonzero(tdate == date)
+        want = codes[present[i]]
+        if not np.array_equal(table.columns["code"][rows].astype(str),
+                              want.astype(str)):
+            fail(f"{date}: the table's codes are not the batch's present "
+                 "codes in axis order")
+        for j, n in enumerate(names):
+            block[j, i, present[i]] = table.columns[n][rows]
+    return block
+
+
+def busy_share(events, window):
+    """Busy microseconds of the device events' union inside ``window``
+    (start, end), and the window's length."""
+    lo, hi = window
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s_, e_ in spans:
+        if e_ <= s_:
+            continue
+        if cur_e is None or s_ > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, hi - lo
+
+
+def copy_times(nbytes: int, card: str):
+    """One ``nbytes`` buffer copied host->device from pinned and from
+    pageable memory, in turns, CUDA events around each; {kind: ms}."""
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.empty(nbytes, dtype=torch.uint8)
+    pageable.fill_(7)
+    pinned.fill_(7)
+    out = {"pinned": [], "pageable": []}
+    for kind in ("pageable", "pinned", "pinned", "pageable"):
+        src = pinned if kind == "pinned" else pageable
+        out[kind] += cuda_times_ms(lambda: src.to("cuda", non_blocking=True),
+                                   iters=5, warmup=1)
+    rate = {k: nbytes / np.median(v) / 1e6 for k, v in out.items()}
+    log(f"host->device copy of {nbytes} B alone (CUDA events, in turns): "
+        f"pinned {spread(out['pinned'])} ({rate['pinned']:.2f} GB/s), "
+        f"pageable {spread(out['pageable'])} ({rate['pageable']:.2f} GB/s) "
+        f"({card})")
+    return out
+
+
+def host_driver(names, tables, card: str) -> dict:
+    """Phase 8: ``compute_exposures`` at full width; see the module
+    docstring. Returns the run's tiled and rowwise launch counts."""
+    import tempfile
+
+    try:
+        # the reader's modules, imported before the timed run as a
+        # long-lived process holds them; the day files are written elsewhere
+        import pyarrow.dataset  # noqa: F401
+        import pyarrow.parquet  # noqa: F401
+    except ImportError:
+        fail("phase 8 writes and reads parquet day files and needs pyarrow")
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        compute_batch, native, pipeline)
+    from replication_of_minute_frequency_factor_tpu_torch.config import (
+        Config)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        DayContext)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry)
+
+    dates = trading_dates(DRIVER_DAYS + RESUME_DAYS)
+    n_batches = -(-DRIVER_DAYS // DAYS_PER_BATCH)
+    cfg = Config(days_per_batch=DAYS_PER_BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
+        tmp = Path(tmp)
+        minute_dir, staged = tmp / "kline", tmp / "staged"
+        days = ([(minute_dir, d, 8000 + i)
+                 for i, d in enumerate(dates[:DRIVER_DAYS])]
+                + [(staged, d, 9000 + i)
+                   for i, d in enumerate(dates[DRIVER_DAYS:])])
+        secs = write_day_files(days, TICKERS, missing_prob=0.02,
+                               zero_volume_prob=0.01,
+                               constant_price_codes=10, short_day_codes=10)
+        log(f"phase 8 input: {TICKERS} tickers x {DRIVER_DAYS} + "
+            f"{RESUME_DAYS} days of int-coded parquet ({dates[0]} to "
+            f"{dates[-1]}) written in {secs:.2f} s (host, process pool)")
+
+        # the timed run: every count at 0 just before, read just after
+        tel = Telemetry()
+        cache = str(tmp / "exposures.parquet")
+        torch.cuda.synchronize()
+        rolling_cuda.reset_launches()
+        rolling.IMPL_COUNTS.clear()
+        native.reset_counts()
+        t0 = time.perf_counter()
+        table = pipeline.compute_exposures(str(minute_dir), cache_path=cache,
+                                           cfg=cfg, progress=False,
+                                           telemetry=tel)
+        wall = time.perf_counter() - t0
+        launches = dict(rolling_cuda.launches)
+        impl = dict(rolling.IMPL_COUNTS)
+        native_counts = dict(native.IMPL_COUNTS)
+        grid_res, wire_res = (native.resolved_counts(op)
+                              for op in ("grid", "wire"))
+        reg = tel.registry
+        log(f"compute_exposures {TICKERS} tickers x {DRIVER_DAYS} days "
+            f"({n_batches} batches of {DAYS_PER_BATCH}), 58 factors: wall "
+            f"{wall:.3f} s, {DRIVER_DAYS / wall:.2f} days/s, "
+            f"{wall / n_batches * 1e3:.1f} ms a batch; {len(table)} rows; "
+            f"second_moments launches {launches}; rolling impl {impl}; "
+            f"native (op, requested, resolved): {native_counts}; encode kinds "
+            f"wire={reg.counter_value('pipeline.encode_kind', kind='wire'):g}"
+            f" raw={reg.counter_value('pipeline.encode_kind', kind='raw'):g}"
+            f" ({card})")
+        if launches != {"tiled": n_batches, "rowwise": 0}:
+            fail(f"compute_exposures launched {launches}; expected the tiled "
+                 f"kernel once per batch ({n_batches})")
+        if impl != {("cuda", "cuda"): n_batches}:
+            fail(f"rolling impl resolved as {impl}")
+        if wire_res != {"native": n_batches} \
+                or grid_res != {"native": DRIVER_DAYS}:
+            fail(f"the native encoder did not take every batch: grid "
+                 f"{grid_res}, wire {wire_res}")
+        if reg.counter_value("pipeline.encode_kind", kind="wire") \
+                != n_batches or table.failures:
+            fail("not every batch shipped through the wire, or a day "
+                 f"failed: {table.failures.summary()}")
+        stages = ("io", "grid", "wire_encode", "pack", "launch", "device",
+                  "save")
+        log("compute_exposures stages (s, summed over both threads): "
+            + ", ".join(f"{k} {table.timings.get(k, 0.0):.3f}"
+                        for k in stages)
+            + f"; reconciliation {json.dumps(table.reconciliation)}")
+        h2d = reg.histogram_stats("pipeline.h2d_ms")
+        n_bytes = reg.counter_value("pipeline.h2d_bytes")
+        depth = reg.histogram_stats("pipeline.queue_depth")
+        log(f"pinned host->device copies on the copy stream: {h2d['count']}"
+            f" of {n_bytes / h2d['count']:.0f} B on average, "
+            f"{h2d['min']:.4f} / {h2d['p50']:.4f} / {h2d['max']:.4f} ms "
+            f"(min / p50 / max; the pageable copy of 68,560,004 B took "
+            f"10.846 ms in the 8-day packed path); producer queue depth "
+            f"p50 {depth['p50']:g}, p95 {depth['p95']:g}, n={depth['count']}"
+            f" ({card})")
+        copy_times(int(n_bytes / h2d["count"]), card)
+
+        # every row bit for bit compute_batch on its batch's decoded bars
+        order = np.lexsort((table.columns["code"], table.columns["date"]))
+        if not (order == np.arange(len(table))).all():
+            fail("the table is not sorted by (date, code)")
+        n_rows = 0
+        for b, (bdates, bars, mask, codes, present) in enumerate(
+                driver_batches(minute_dir, DAYS_PER_BATCH)):
+            t0 = time.perf_counter()
+            enc = wire.encode(bars, mask, use_native=True)
+            t_native = time.perf_counter() - t0
+            buf, spec = wire.pack_arrays(enc.arrays)
+            if b == 0:
+                t0 = time.perf_counter()
+                ref_enc = wire.encode(bars, mask, use_native=False)
+                t_numpy = time.perf_counter() - t0
+                same = all(np.asarray(x).dtype == np.asarray(y).dtype
+                           and np.asarray(x).tobytes()
+                           == np.asarray(y).tobytes()
+                           for x, y in zip(enc.arrays, ref_enc.arrays))
+                if not same or enc.modes != ref_enc.modes:
+                    fail("the native wire encoding differs from numpy's")
+                log(f"wire.encode {bars.shape[:-1]}: native {t_native:.4f}"
+                    f" s, numpy {t_numpy:.4f} s, byte-identical (modes "
+                    f"{enc.modes}) (host)")
+            dec = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(),
+                                           spec))
+            out = compute_batch(*dec, device="cuda", rolling_impl="cuda")
+            ref = out.cpu().numpy()
+            block = table_block(table, bdates, codes, present, names)
+            sel = np.broadcast_to(present, ref.shape)
+            if not np.array_equal(block[sel].view(np.int32),
+                                  ref[sel].view(np.int32)):
+                fail(f"batch {b} ({bdates[0]}..): table rows differ from "
+                     "compute_batch on the decoded bars")
+            # the tiled kernel at the driver's shape, pad lanes included,
+            # against the plain version on the same decoded bars
+            plain = compute_batch(*dec, device="cuda", rolling_impl="torch")
+            beta = DayContext(*dec, rolling_impl="torch").beta_moments()[:3]
+            worst, n_bitwise, _ = compare_blocks(
+                f"driver batch {b} cuda-vs-torch", names, out, plain, tables,
+                beta)
+            log(f"driver batch {b} {tuple(out.shape)}: rolling_impl=cuda "
+                f"against rolling_impl=torch on every lane, pads included: "
+                f"NaN/inf positions identical, {n_bitwise} factors bitwise "
+                f"equal, worst value used {worst:.2e} of its tolerance")
+            del out, plain, beta, dec
+            n_rows += int(present.sum())
+        if n_rows != len(table):
+            fail(f"{n_rows} present lanes against {len(table)} table rows")
+        log(f"all {len(table)} rows x {len(names)} factors bitwise equal to "
+            "compute_batch on each batch's decoded bars; codes and dates "
+            "sorted by (date, code)")
+
+        # resume: 8 more days; only they pass fault_hook
+        for f in sorted(staged.iterdir()):
+            os.replace(f, minute_dir / f.name)
+        seen = []
+        rolling_cuda.reset_launches()
+        t0 = time.perf_counter()
+        resumed = pipeline.compute_exposures(
+            str(minute_dir), cache_path=cache, cfg=cfg, progress=False,
+            fault_hook=seen.append)
+        wall_r = time.perf_counter() - t0
+        if [str(d) for d in seen] != dates[DRIVER_DAYS:]:
+            fail(f"the resume read {seen}, expected only the new days")
+        old = resumed.columns["date"] <= np.datetime64(dates[DRIVER_DAYS - 1])
+        if int(old.sum()) != len(table) or not all(
+                np.array_equal(np.asarray(resumed.columns[k])[old],
+                               np.asarray(table.columns[k]))
+                for k in ("code", "date")) or not all(
+                np.array_equal(resumed.columns[n][old].view(np.int32),
+                               table.columns[n].view(np.int32))
+                for n in names):
+            fail("the resume changed the cached rows")
+        log(f"resume: {len(seen)} new days computed in {wall_r:.3f} s "
+            f"({dict(rolling_cuda.launches)} launches), {len(table)} "
+            "cached rows unchanged bit for bit; "
+            f"{len(resumed) - len(table)} new rows")
+
+        # retry: one injected launch failure, the whole run profiled
+        real = pipeline.compute_packed_prepared
+        calls = [0]
+
+        def flaky(*a, **kw):
+            calls[0] += 1
+            if calls[0] == 1:
+                raise RuntimeError("injected launch failure")
+            return real(*a, **kw)
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        tel_r = Telemetry()
+        pipeline.compute_packed_prepared = flaky
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                again = pipeline.compute_exposures(
+                    str(minute_dir), cache_path=str(tmp / "retry.parquet"),
+                    cfg=cfg, progress=False, telemetry=tel_r)
+                torch.cuda.synchronize()
+                wall_p = time.perf_counter() - t0
+        finally:
+            pipeline.compute_packed_prepared = real
+        retries = tel_r.registry.counter_total("pipeline.retries")
+        if again.failures or retries != 1 or len(again) != len(resumed) \
+                or not all(np.array_equal(again.columns[n].view(np.int32),
+                                          resumed.columns[n].view(np.int32))
+                           for n in names):
+            fail(f"the injected failure cost rows or bits: retries "
+                 f"{retries}, failures {again.failures.summary()}")
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("Activity Buffer")]
+        pinned = sorted((e.time_range.start, e.time_range.elapsed_us())
+                        for e in events
+                        if "HtoD" in e.name and "Pinned" in e.name)
+        copies = [start for start, _ in pinned]
+        if not events or len(copies) < 2:
+            fail(f"the profile shows {len(events)} device events and "
+                 f"{len(copies)} pinned host->device copies")
+        end = max(e.time_range.end for e in events)
+        busy, span = busy_share(events, (copies[1], end))
+        busy_all, span_all = busy_share(
+            events, (min(e.time_range.start for e in events), end))
+        log(f"retry run under torch.profiler, all {len(dates)} days from "
+            f"an empty cache: 1 injected launch failure, retries "
+            f"{retries:g}, 0 days lost, rows bitwise the resumed cache's; "
+            f"wall {wall_p:.3f} s profiled; device busy "
+            f"{busy / 1e3:.1f} of {span / 1e3:.1f} ms from the second "
+            f"batch's copy on: idle share {1 - busy / span:.1%} (whole run "
+            f"{1 - busy_all / span_all:.1%}); {len(copies)} pinned copies of "
+            f"{n_bytes / h2d['count']:.0f} B each, in ms (profiled): "
+            + ", ".join(f"{us / 1e3:.4f}" for _, us in pinned)
+            + f" ({card})")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke needs an NVIDIA GPU")
     from replication_of_minute_frequency_factor_tpu_torch import (
-        compute_batch, kernels, wire)
+        compute_batch, kernels, pipeline, wire)
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         DayContext, factor_names)
     from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
@@ -739,13 +1140,20 @@ def main() -> None:
         log(f"build: {sorted(set(paths) - set(kernels.BUILD_LOGS))} were "
             "already built; no ptxas report for them in this run")
 
-    # 3. kernels vs plain version on the card; tiled vs rowwise bit for bit
+    # 3. kernels vs plain version on the card; tiled vs rowwise bit for bit.
+    # The kernels line holds each kernel at the shape and window of the path
+    # its launches are counted on: the tiled one at the host driver's batch
+    # (phase 8: DAYS_PER_BATCH days of TICKERS padded to the ticker bucket),
+    # the rowwise one at phase 4b's [DAYS * TICKERS, 240], window 20.
     rows = DAYS * TICKERS
-    args, max_err = check_moments(rows, 240, seed=1)
-    for r_, L in ((rows, 390), (8000, 1440), (12347, 240), (4001, 150),
-                  (3, 240), (5, 40)):
+    tp = pipeline._pad_bucket(TICKERS)
+    drv_rows, drv_pad = DAYS_PER_BATCH * tp, (tp, TICKERS)
+    args, max_err = check_moments(drv_rows, 240, seed=1, pad=drv_pad)
+    for r_, L in ((rows, 240), (rows, 390), (8000, 1440), (12347, 240),
+                  (4001, 150), (3, 240), (5, 40)):
         check_moments(r_, L, seed=L + r_)
     check_other_window(4001, 240, seed=20)
+    args20, max_err_rows = check_other_window(rows, 240, seed=21)
     for L in (240, 390, 150, 1440):
         before = dict(rolling_cuda.launches)
         res = rolling._smoke(device="cuda", length=L)
@@ -754,22 +1162,29 @@ def main() -> None:
                  "expected the tiled kernel once per seed")
         log(f"rolling._smoke L={L} impls={res['impls']}: "
             f"{res['checks']} checks ok, through the tiled kernel")
-    # the plain version in turns with the tiled kernel, per-call events
-    kernel_ms, plain_ms = [], []
-    for dest, fn in ((kernel_ms, rolling_cuda.second_moments),
-                     (plain_ms, rolling_cuda.second_moments_plain),
-                     (plain_ms, rolling_cuda.second_moments_plain),
-                     (kernel_ms, rolling_cuda.second_moments)):
-        dest += cuda_times_ms(lambda: fn(*args, WINDOW))
-    plain = float(np.median(plain_ms))
-    log(f"second_moments [{rows}, 240] on {card}: tiled kernel, one call "
-        f"per event pair, {spread(kernel_ms)}; plain {spread(plain_ms)}")
-    del args
-    # the two kernels in turns, 20 launches per event pair
-    timed = {(r_, L): time_moments(r_, L, card)
-             for r_, L in ((rows, 240), (rows, 390), (8000, 1440))}
-    main_ms = {k: float(np.median(v)) for k, v in timed[(rows, 240)].items()}
-    bound, bound_by, _, _ = moment_bound(rows, 240)
+    # the kernels line's times: each kernel through the wrapper (20 launches
+    # per event pair) in turns with its plain version (one call per pair)
+    line = {}
+    for variant, r_, a_, w in (("tiled", drv_rows, args, WINDOW),
+                               ("rowwise", rows, args20, OTHER_WINDOW)):
+        kernel_ms, plain_ms = [], []
+        for dest, fn, clock in (
+                (kernel_ms, rolling_cuda.second_moments, batched_times_ms),
+                (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+                (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+                (kernel_ms, rolling_cuda.second_moments, batched_times_ms)):
+            dest += clock(lambda: fn(*a_, w))
+        bound, by, _, _ = moment_bound(r_, 240, w)
+        line[variant] = {"ms": float(np.median(kernel_ms)),
+                         "plain_ms": float(np.median(plain_ms)),
+                         "bound_ms": bound, "bound_by": by}
+        log(f"second_moments [{r_}, 240] window {w} on {card}: {variant} "
+            f"kernel {spread(kernel_ms)} ({bound / np.median(kernel_ms):.0%}"
+            f" of the {bound:.4f} ms bound by {by}); plain {spread(plain_ms)}")
+    del args, args20, a_
+    # the two kernels in turns at window 50, 20 launches per event pair
+    for r_, L in ((drv_rows, 240), (rows, 240), (rows, 390), (8000, 1440)):
+        time_moments(r_, L, card, pad=drv_pad if r_ == drv_rows else None)
 
     # 4. the main path at full width
     t0 = time.perf_counter()
@@ -873,6 +1288,9 @@ def main() -> None:
     log(f"card vs CPU: {n_edge} doc_pdf lanes in all differed, each inside "
         f"the PDF_EDGE_EPS = {tables['PDF_EDGE_EPS']} band")
 
+    # 8. the host driver at full width
+    driver_launches = host_driver(names, tables, card)
+
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"
     tpu = "replication_of_minute_frequency_factor_tpu/ops/rolling_pallas.py:113"
@@ -883,15 +1301,12 @@ def main() -> None:
         "replaces": tpu,
         "launches": n,
         "max_abs_err": err,
-        "ms": main_ms[variant],
-        "plain_ms": plain,
-        "bound_ms": bound,
-        "bound_by": bound_by,
+        **line[variant],
         "library_ms": None,
     } for name, variant, n, err in (
-        ("second_moments", "tiled", launches["tiled"], max_err),
+        ("second_moments", "tiled", driver_launches["tiled"], max_err),
         ("second_moments_rowwise", "rowwise", other_launches["rowwise"],
-         max_err))]}), flush=True)
+         max_err_rows))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,13 +7,16 @@ JAX package's Pallas TPU kernel rewritten by hand for Hopper (``csrc/``).
 It imports neither jax nor the JAX package.
 
 Ported so far: session specs, pins and config, gridding and synthetic
-days, the ingest wire (:mod:`.data.wire`: numpy encoder, device decode),
-the masked/rank/top-k/segment/rolling ops, ``DayContext`` and all 58
-factors, with two batch entry points: :func:`compute_batch` (bars and
-mask) and :func:`compute_packed` (one packed wire or raw buffer, decoded
-on the device). Entry points run on the card unless the caller passes
+days (numpy and the native C++ packer), the ingest wire (:mod:`.data.wire`:
+native and numpy encoders, device decode), the masked/rank/top-k/segment/
+rolling ops, ``DayContext`` and all 58 factors; two batch entry points,
+:func:`compute_batch` (bars and mask) and :func:`compute_packed` (one
+packed wire or raw buffer, decoded on the device); and the host driver,
+:func:`compute_exposures` (day files in, the :class:`ExposureTable` cache
+out). Entry points run on the card unless the caller passes
 ``device='cpu'``.
 """
 
 from .data import wire  # noqa: F401
-from .pipeline import compute_batch, compute_packed  # noqa: F401
+from .pipeline import (  # noqa: F401
+    ExposureTable, compute_batch, compute_exposures, compute_packed)

@@ -27,10 +27,11 @@ session-generic: encode reads the slot count off the mask, decode from
 ``dohl``'s slot axis, and a sub-byte packing whose divisor the slot count
 misses (``pack_dclose4`` needs an even count, vol10 a multiple of 4) is
 simply never chosen. The port of the JAX
-package's ``data/wire.py``: the host half (:func:`encode`, the numpy path,
-and :func:`pack_arrays`) writes the JAX package's bytes exactly, and the
-device half (:func:`unpack`, :func:`decode`) is plain torch on whatever
-device the buffer lies on, giving the JAX package's bars bit for bit.
+package's ``data/wire.py``: the host half (:func:`encode`, through the C++
+single-pass encoder or numpy, and :func:`pack_arrays`) writes the JAX
+package's bytes exactly, and the device half (:func:`unpack`,
+:func:`decode`) is plain torch on whatever device the buffer lies on,
+giving the JAX package's bars bit for bit.
 
 Decoded prices are tick counts times the f32 reciprocal of 100, not tick
 counts divided by 100: XLA strength-reduces the JAX package's constant
@@ -51,11 +52,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..native import narrow_wire
+from .. import native
+from ..native import TICKS_PER_UNIT, narrow_wire
 
-#: ticks per currency unit (the 0.01 tick)
-TICKS_PER_UNIT = 100
 _I16 = 32767
+
+#: the keys of ``WireBatch.modes`` (and of a run's widen-only floor)
+_MODE_KEYS = ("dclose_mode", "ohl_mode", "vol_mode")
 
 #: numpy dtype -> torch dtype of every array the wire and the raw path ship
 _TORCH_DTYPES = {np.dtype(t): d for t, d in (
@@ -88,7 +91,7 @@ class WireBatch:
     vol_scale: float      # shares per volume unit (1 or 100)
     #: the rung of each field's ladder this batch was packed at
     #: (``native.DCLOSE_SHAPES``/``OHL_SHAPES``/``VOL_SHAPES`` indices, as
-    #: ``native.narrow_wire`` picked them)
+    #: ``native.narrow_wire`` or the native encoder's floor picked them)
     modes: dict
 
     @property
@@ -108,15 +111,38 @@ def pack_mask(mask: np.ndarray) -> np.ndarray:
 
 
 def encode(bars: np.ndarray, mask: np.ndarray,
-           floor: Optional[dict] = None) -> Optional[WireBatch]:
-    """Host-side packing (numpy); None when the batch can't be represented.
+           floor: Optional[dict] = None,
+           use_native: Optional[bool] = None) -> Optional[WireBatch]:
+    """Host-side packing; None when the batch can't be represented.
 
     ``floor`` is the widen-only mode state a pipeline run threads through
     successive batches (see ``native.narrow_wire``): a field never packs
-    narrower than an earlier batch of the run did.
+    narrower than an earlier batch of the run did. ``use_native`` selects
+    the C++ single-pass encoder (``native.wire_encode_native``, threaded
+    across tickers, the GIL released); default: native when it builds,
+    numpy otherwise. The native encoder is baked to 240 slots, so other
+    sessions take the numpy path, and ``use_native=True`` raises when the
+    library is unavailable. Both give the same bytes and modes; the path
+    taken is counted in ``native.IMPL_COUNTS[('wire', requested,
+    resolved)]``.
     """
     bars = np.asarray(bars)
     mask = np.asarray(mask)
+    floor = floor if floor is not None else {}
+    if (use_native is None or use_native) and mask.shape[-1] == 240:
+        if native.available():
+            out = native.wire_encode_native(bars, mask, floor=floor)
+            native.count("wire", use_native, "native")
+            if out is None:  # unrepresentable; semantics match numpy
+                return None
+            base, dclose, dohl, volume, vol_scale = out
+            return WireBatch(
+                base=base, dclose=dclose, dohl=dohl, volume=volume,
+                maskbits=pack_mask(mask), vol_scale=vol_scale,
+                modes={k: floor.get(k, 0) for k in _MODE_KEYS})
+        if use_native:
+            raise RuntimeError("native wire encoder unavailable")
+    native.count("wire", use_native, "numpy")
     # float64 throughout: under NEP 50 a bare ``f32_array / 0.01`` would
     # stay FLOAT32 and round high tick counts to different integers.
     # Multiply by the integral inverse rather than dividing by the
@@ -260,26 +286,41 @@ def decode(base, dclose, dohl, volume, maskbits, vol_scale):
     return bars, m
 
 
-def pack_arrays(arrays) -> tuple:
+def pack_spec(arrays) -> tuple:
+    """``(spec, nbytes)`` of the buffer :func:`pack_arrays` makes of
+    ``arrays``: ``spec`` is a hashable ``((dtype, shape, byte_offset),
+    ...)``, every chunk padded to 4 bytes, so every slice's offset is a
+    multiple of its element size."""
+    spec, off = [], 0
+    for a in arrays:
+        a = np.asarray(a)
+        spec.append((a.dtype.str, a.shape, off))
+        off += -(-a.nbytes // 4) * 4
+    return tuple(spec), off
+
+
+def pack_arrays(arrays, out: Optional[np.ndarray] = None) -> tuple:
     """Concatenate host arrays into ONE uint8 buffer + a static spec.
 
     A batch ships as one buffer instead of six (and returns one stacked
     tensor instead of 58 — see the pipeline), so it costs one host->device
-    copy. ``spec`` is a hashable ``((dtype, shape, byte_offset), ...)``;
-    :func:`unpack` slices and reinterprets on device. Every chunk is padded
-    to 4 bytes, so every slice's offset is a multiple of its element size.
+    copy. :func:`unpack` slices and reinterprets on device. ``out`` (a
+    1-D uint8 array of ``pack_spec(arrays)[1]`` bytes, e.g. the numpy view
+    of a pinned host tensor) receives the bytes in place of a new buffer;
+    the pad bytes are zero either way.
     """
-    spec, chunks, off = [], [], 0
-    for a in arrays:
-        a = np.asarray(a)
-        spec.append((a.dtype.str, a.shape, off))
+    arrays = [np.asarray(a) for a in arrays]
+    spec, nbytes = pack_spec(arrays)
+    if out is None:
+        out = np.empty(nbytes, np.uint8)
+    elif out.dtype != np.uint8 or out.shape != (nbytes,):
+        raise ValueError(f"pack_arrays: out is {out.dtype} {out.shape}, "
+                         f"expected uint8 ({nbytes},)")
+    for a, (_, _, off) in zip(arrays, spec):
         b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-        pad = (-(off + b.nbytes)) % 4
-        chunks.append(b)
-        if pad:
-            chunks.append(np.zeros(pad, np.uint8))
-        off += b.nbytes + pad
-    return np.concatenate(chunks), tuple(spec)
+        out[off:off + b.nbytes] = b
+        out[off + b.nbytes:off + -(-b.nbytes // 4) * 4] = 0
+    return out, spec
 
 
 def unpack(buf, spec):

@@ -1,26 +1,47 @@
-"""Batch entry points: a batch of gridded days in, a stacked ``[F, ...]``
-factor block out, on the device.
+"""Batch entry points and the host driver: day files in, the exposure
+cache out, on the device.
 
 :func:`compute_batch` takes bars and mask; :func:`compute_packed` (and its
 device half :func:`compute_packed_prepared`) takes the arrays of the
 ingest wire (or the raw bars and uint8 mask) packed into one uint8
 buffer, copies that one buffer to the device, unpacks and decodes it
-there — the JAX package's ``pipeline._compute_packed``. The
-``compute_exposures`` day loop, the result wire and the factor-stats side
-output come with later slices.
+there — the JAX package's ``pipeline._compute_packed``.
+
+:func:`compute_exposures` is the JAX package's host driver of the same
+name: it lists the minute-bar day files, resumes past the cache's max date,
+batches the days, runs :func:`_run_device_pipeline` (a producer thread
+grids, encodes and packs batch i+1 into a pinned host buffer while the
+card computes batch i; the copy runs on a stream of its own, the result
+comes back to a pinned buffer without blocking), isolates failed days,
+and keeps the columnar :class:`ExposureTable` cache with its failure
+ledger. The result wire and the factor-stats side output come with later
+slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import json
+import os
+import queue
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .config import get_config
+from .config import Config, get_config
+from .data import io as dio
 from .data import wire
+from .data.minute import grid_day
 from .markets import get_session
 from .models import compute_factors, factor_names
+from .telemetry import Telemetry, get_telemetry
+from .telemetry import attribution as _attribution
+from .utils.logging import FailureReport, get_logger
+from .utils.tracing import Timer, trace_annotation
+
+logger = get_logger(__name__)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,9 +109,12 @@ def compute_packed_prepared(buf, spec, kind: str,
     ``kind='wire'`` (``kind='raw'`` ships ``(bars f32, mask uint8)``), and
     the named factors stacked to ``[F, D, T]`` on the device.
 
-    ``device`` defaults to ``cuda`` and raises when no card is present.
-    ``result_spec`` and ``factor_stats`` (the result wire and the
-    factor-stats side output) are not ported yet and raise if given.
+    ``buf`` is a numpy buffer, or a 1-D uint8 tensor: a pinned host one is
+    copied with ``non_blocking=True`` on the current stream, one already
+    on the device is used as it is. ``device`` defaults to ``cuda`` and
+    raises when no card is present. ``result_spec`` and ``factor_stats``
+    (the result wire and the factor-stats side output) are not ported yet
+    and raise if given.
     """
     if result_spec is not None or factor_stats:
         raise NotImplementedError(
@@ -98,7 +122,13 @@ def compute_packed_prepared(buf, spec, kind: str,
     if kind not in ("wire", "raw"):
         raise ValueError(f"kind must be 'wire' or 'raw', not {kind!r}")
     dev = resolve_device(device)
-    buf = torch.from_numpy(np.ascontiguousarray(buf, np.uint8)).to(dev)
+    if isinstance(buf, torch.Tensor):
+        if buf.dtype != torch.uint8 or buf.dim() != 1:
+            raise ValueError(f"buf is a {buf.dtype} tensor of shape "
+                             f"{tuple(buf.shape)}, expected 1-D uint8")
+        buf = buf.to(dev, non_blocking=True)
+    else:
+        buf = torch.from_numpy(np.ascontiguousarray(buf, np.uint8)).to(dev)
     arrs = wire.unpack(buf, spec)
     if kind == "wire":
         bars, mask = wire.decode(*arrs)
@@ -121,3 +151,847 @@ def compute_packed(arrays, kind: str, names: Optional[Sequence[str]] = None,
     return compute_packed_prepared(
         buf, spec, kind, names, replicate_quirks, rolling_impl,
         result_spec, factor_stats, session=session, device=device)
+
+
+#: ticker-axis bucket size: T pads up to a multiple, so every batch of a
+#: universe has the JAX package's shape (and so its result bits)
+TICKER_BUCKET = 256
+
+
+class ExposureTable:
+    """Long-format exposure rows ``(code, date, factor...)`` sorted by
+    (date, code) — the reference's exposure contract widened to many
+    factor columns."""
+
+    def __init__(self, columns: Dict[str, np.ndarray]):
+        if "code" not in columns or "date" not in columns:
+            raise ValueError("an ExposureTable needs 'code' and 'date' "
+                             "columns")
+        self.columns = columns
+
+    # --- construction ---------------------------------------------------
+    @classmethod
+    def empty(cls, names: Sequence[str]) -> "ExposureTable":
+        cols = {"code": np.array([], dtype=object),
+                "date": np.array([], dtype="datetime64[D]")}
+        for n in names:
+            cols[n] = np.array([], dtype=np.float32)
+        return cls(cols)
+
+    @classmethod
+    def concat(cls, parts: Sequence["ExposureTable"]) -> "ExposureTable":
+        keys = list(parts[0].columns)
+        for i, p in enumerate(parts[1:], start=1):
+            if set(p.columns) != set(keys):
+                # schema drift (e.g. a cache written by a different factor
+                # list) must fail loudly, not as a KeyError mid-concat;
+                # column ORDER differences reconcile to part 0's order
+                raise ValueError(
+                    f"ExposureTable.concat: part {i} columns "
+                    f"{sorted(p.columns)} != part 0 columns {sorted(keys)}")
+        cols = {k: np.concatenate([np.asarray(p.columns[k]) for p in parts])
+                for k in keys}
+        return cls(cols)
+
+    # --- views ----------------------------------------------------------
+    @property
+    def factor_names(self) -> Tuple[str, ...]:
+        return tuple(k for k in self.columns if k not in ("code", "date"))
+
+    def __len__(self) -> int:
+        return len(self.columns["code"])
+
+    @property
+    def max_date(self) -> Optional[np.datetime64]:
+        d = self.columns["date"]
+        return d.max() if len(d) else None
+
+    def sort(self) -> "ExposureTable":
+        order = np.lexsort((self.columns["code"], self.columns["date"]))
+        self.columns = {k: np.asarray(v)[order]
+                        for k, v in self.columns.items()}
+        return self
+
+    def single(self, name: str) -> Dict[str, np.ndarray]:
+        """Reference-shaped single-factor view ``(code, date, <name>)``."""
+        return {"code": self.columns["code"], "date": self.columns["date"],
+                name: self.columns[name]}
+
+    # --- parquet --------------------------------------------------------
+    def to_arrow(self):
+        """The table as a ``pyarrow.Table`` (code string, date date32,
+        factors float32)."""
+        import pyarrow as pa
+
+        arrays, fields = [], []
+        for k, v in self.columns.items():
+            if k == "code":
+                arrays.append(pa.array([str(c) for c in v], pa.string()))
+                fields.append(pa.field(k, pa.string()))
+            elif k == "date":
+                arrays.append(pa.array(v.astype("datetime64[D]")))
+                fields.append(pa.field(k, pa.date32()))
+            else:
+                arrays.append(pa.array(np.asarray(v, np.float32)))
+                fields.append(pa.field(k, pa.float32()))
+        return pa.Table.from_arrays(arrays, schema=pa.schema(fields))
+
+    @classmethod
+    def from_arrow(cls, table) -> "ExposureTable":
+        cols = {}
+        for name in table.schema.names:
+            col = table.column(name)
+            if name == "code":
+                cols[name] = np.asarray(col.to_pylist(), dtype=object)
+            elif name == "date":
+                cols[name] = col.to_numpy(
+                    zero_copy_only=False).astype("datetime64[D]")
+            else:
+                cols[name] = col.to_numpy(zero_copy_only=False)
+        return cls(cols)
+
+    def save(self, path: str) -> None:
+        """Atomic cache write. ``.mffz`` paths take the framed
+        compressed format (arrow IPC + zstd/lz4/zlib chain —
+        data/io.frame_bytes); everything else stays parquet. Both are
+        tempfile-then-rename crash-safe."""
+        if path.endswith(".mffz"):
+            dio.write_framed_table_atomic(self.to_arrow(), path)
+        else:
+            dio.write_parquet_atomic(self.to_arrow(), path)
+
+    @classmethod
+    def load(cls, path: str) -> "ExposureTable":
+        if path.endswith(".mffz"):
+            return cls.from_arrow(dio.read_framed_table(path))
+        import pyarrow.parquet as pq
+        return cls.from_arrow(pq.read_table(path))
+
+
+def _pad_bucket(n: int) -> int:
+    return max(TICKER_BUCKET, -(-n // TICKER_BUCKET) * TICKER_BUCKET)
+
+
+def _grid_batch(day_data: List[Tuple[np.datetime64, Dict[str, np.ndarray]]]):
+    """Union-code, bucket-padded dense batch for a list of day columns.
+
+    Returns ``(bars [D,Tp,240,5], mask [D,Tp,240], codes [Tp],
+    present [D,Tp])`` where ``present`` marks codes that had rows in that
+    day's file (they get an output row even if every bar was off-grid,
+    matching the reference's per-group row). ``Tp`` pads to a multiple of
+    TICKER_BUCKET. The JAX package's ``_grid_batch`` without its mesh
+    multiple.
+    """
+    # The code axis never becomes object dtype: object put Python-level
+    # comparisons inside every searchsorted/compare/isin of every day.
+    # Per-day uniques are computed once and reused for both the union and
+    # `present`. When every day carries raw integer codes
+    # (data/io.read_minute_day_raw, compute_exposures' reader) the whole grid
+    # runs on int64 and only the Tp-element axis is rendered to the
+    # normalized string form, once.
+    code_arrays = [np.asarray(d["code"]) for _, d in day_data]
+    int_path = all(c.dtype.kind in "iu" for c in code_arrays)
+    day_uniqs = [np.unique(c) for c in code_arrays]
+    if int_path and any(len(u) for u in day_uniqs):
+        nonempty = [u for u in day_uniqs if len(u)]
+        if (min(int(u[0]) for u in nonempty) < 0
+                or max(int(u[-1]) for u in nonempty) > 999_999):
+            # out of the zero-padded 6-char domain: int sort order would
+            # no longer match the rendered string sort order — normalize
+            # per day and take the string path
+            int_path = False
+            code_arrays = [dio.int_codes_to_str(c) for c in code_arrays]
+            day_uniqs = [np.unique(c) for c in code_arrays]
+    elif not int_path and any(c.dtype.kind in "iu" for c in code_arrays):
+        # mixed int/str days in one batch: normalize the int ones
+        code_arrays = [dio.int_codes_to_str(c) if c.dtype.kind in "iu"
+                       else c for c in code_arrays]
+        day_uniqs = [np.unique(c) for c in code_arrays]
+    all_codes = np.unique(np.concatenate(day_uniqs))
+    t_pad = _pad_bucket(len(all_codes))
+    n_pads = t_pad - len(all_codes)
+    if int_path:
+        # pad codes 10^6+i sort after every real code, like the
+        # '__padN__' names do in the string path
+        axis = np.concatenate([all_codes.astype(np.int64),
+                               1_000_000 + np.arange(n_pads,
+                                                     dtype=np.int64)])
+        codes_out = np.concatenate([
+            dio.int_codes_to_str(all_codes),
+            np.array([f"__pad{i}__" for i in range(n_pads)])
+            if n_pads else np.empty(0, "U6")])
+    else:
+        all_str = all_codes.astype(str)
+        # explicit dtype for the empty case: np.array([]) is float64 and
+        # would promote the whole axis to U32 (or raise on older numpy)
+        pads = (np.array([f"__pad{i}__" for i in range(n_pads)])
+                if n_pads else np.empty(0, all_str.dtype))
+        # concatenate promotes to the wider 'U' width; pads sort after
+        # real codes ('_' > any digit used in A-share codes)
+        axis = codes_out = np.sort(np.concatenate([all_str, pads]))
+    bars_l, mask_l, present_l = [], [], []
+    for (_, d), c, uniq in zip(day_data, code_arrays, day_uniqs):
+        g = grid_day(c, d["time"], d["open"], d["high"], d["low"],
+                     d["close"], d["volume"], codes=axis)
+        bars_l.append(g.bars)
+        mask_l.append(g.mask)
+        # positions in `axis` == positions in `codes_out` (both carry
+        # the sorted real codes first, pads after — pads are never
+        # present, so only their positions-as-filler matter)
+        present_l.append(np.isin(g.codes, uniq))
+    return (np.stack(bars_l), np.stack(mask_l), codes_out,
+            np.stack(present_l))
+
+
+#: consecutive failed batches before the device pipeline gives up (the
+#: per-batch retry makes each of these TWO device attempts)
+_CIRCUIT_BREAKER = 3
+
+#: stop soloing after this many consecutive day-launch failures inside
+#: one isolation pass: against a dead device every solo launch just
+#: fails again, so after two the remaining days are recorded unattempted
+#: (recoverable via retry_failed) and the breaker decides the run's fate
+_ISOLATION_GIVEUP = 2
+
+
+def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
+                         parts: List["ExposureTable"],
+                         failures: Optional[FailureReport] = None,
+                         path_of: Optional[Dict[str, str]] = None,
+                         telemetry: Optional[Telemetry] = None,
+                         device=None) -> None:
+    """Double-buffered device pipeline: a producer thread prepares batch
+    i+1 (grid + validate + wire-encode + pack) while the device computes
+    batch i, through a bounded queue of two batches.
+
+    On the card the producer packs each batch into a pinned host buffer
+    (torch's caching host allocator, which reuses a buffer only once the
+    copies recorded on it have completed); the consumer copies it with
+    ``non_blocking=True`` on a copy stream of its own, the compute stream
+    waits on that copy's event, and the ``[F, D, Tp]`` result starts its
+    non-blocking copy back to a pinned host buffer right after the
+    launch. The consumer launches batch i+1 before it settles batch i,
+    so the card has the next batch queued while the host waits on this
+    one's result. A payload (and its pinned buffer) lives until its batch
+    settles, so a retry re-copies the same bytes. On the CPU
+    (``device='cpu'``) the same loop runs on plain host arrays.
+
+    Elasticity: a batch that fails on the device is retried ONCE; if the
+    retry also fails — or host prep (grid/encode) fails, which is
+    near-always deterministic — multi-day batches are ISOLATED per day
+    (fresh host prep from disk, one launch per day), so a single poisoned
+    day cannot take its batch-mates down: only the days that fail alone
+    land in ``failures``. ``_CIRCUIT_BREAKER`` consecutive dead batches
+    abort (a CUDA error is sticky: after one, every launch fails, and the
+    breaker ends the run); completed batches always survive an abort (the
+    consumer flushes its in-flight batch before raising and the caller
+    saves a resume-safe partial cache)."""
+    tel = telemetry if telemetry is not None else get_telemetry()
+    dev = resolve_device(device)
+    card = dev.type == "cuda"
+    copy_stream = torch.cuda.Stream(device=dev) if card else None
+    inflight = [0]  # launched-not-yet-materialized batches (gauge)
+
+    def _note_queue_depth(depth: int) -> None:
+        # gauge = the last sampled depth; histogram = its distribution
+        # over the run, sampled after each put and each get (a p95 pinned
+        # at maxsize means the device is the bottleneck; when the
+        # producer is, the gets read 0 and the puts 1, the batch not yet
+        # taken by the waiting consumer)
+        tel.gauge("pipeline.queue_depth", depth)
+        tel.observe("pipeline.queue_depth", depth)
+
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    stop = threading.Event()  # set on consumer abort; unblocks producer
+    wire_floor: dict = {}  # widen-only dtype state across this run's batches
+
+    def _qput(item) -> bool:
+        """Bounded put that gives up when the consumer aborted —
+        otherwise a breaker abort would leave the daemon producer
+        blocked on a full queue forever, pinning the batches it holds."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                _note_queue_depth(q.qsize())
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _record_batch_failure(dates, exc):
+        if failures is None:
+            raise exc
+        tel.counter("pipeline.failed_days", len(dates))
+        for d in dates:
+            failures.record(str(d), (path_of or {}).get(str(d), ""), exc)
+
+    def pack(arrays):
+        """One host buffer of ``arrays``: pinned on the card (a failed
+        pin raises), plain numpy on the CPU."""
+        if not card:
+            return wire.pack_arrays(arrays)
+        spec, nbytes = wire.pack_spec(arrays)
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        wire.pack_arrays(arrays, out=host.numpy())
+        return host, spec
+
+    def prep(batch):
+        """Host half for one batch of (date, day-columns) pairs: grid +
+        validate + wire-encode + pack into the launch payload. Shared by
+        the producer thread and by per-day isolation on the consumer
+        (widen-only ``wire_floor`` updates are monotonic, so the
+        cross-thread sharing is benign). Raises on failure."""
+        dates = [d for d, _ in batch]
+        with timer("grid"):
+            bars, mask, codes, present = _grid_batch(batch)
+        if cfg.debug_validate:
+            from .utils.debug import validate_batch
+            validate_batch(bars, mask)
+        w = None
+        if cfg.wire_transfer:
+            with timer("wire_encode"):
+                w = wire.encode(bars, mask, floor=wire_floor)
+        # the wire->raw fallback triples the bytes on the link; count it
+        # per batch so it can never be invisible
+        tel.counter("pipeline.encode_kind",
+                    kind="wire" if w is not None else "raw")
+        with timer("pack"):
+            if w is not None:
+                buf, spec = pack(w.arrays)
+                kind = "wire"
+            else:
+                buf, spec = pack((bars, np.asarray(mask).view(np.uint8)))
+                kind = "raw"
+        return (dates, codes, present, (buf, spec, kind))
+
+    def produce():
+        try:
+            for batch in batches:
+                dates = [d for d, _ in batch]
+                try:
+                    payload = prep(batch)
+                except Exception as e:  # noqa: BLE001 — batch isolation
+                    logger.warning("host prep failed for batch %s: %s",
+                                   dates, e)
+                    if not _qput(("hostfail", (dates, e))):
+                        return
+                    continue
+                if not _qput(("batch", payload)):
+                    return
+        except BaseException as e:  # surface in the consumer thread
+            _qput(("error", e))
+            return
+        _qput(("done", None))
+
+    threading.Thread(target=produce, daemon=True).start()
+
+    def copy_in(host):
+        """The pinned ``host`` buffer onto the card on the copy stream;
+        the compute (current) stream waits on the copy's event. Returns
+        the device buffer and ``(start, end, bytes)`` of the copy."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(copy_stream):
+            start.record(copy_stream)
+            dbuf = host.to(dev, non_blocking=True)
+            end.record(copy_stream)
+        compute = torch.cuda.current_stream(dev)
+        compute.wait_event(end)
+        # allocated on the copy stream, read on the compute stream
+        dbuf.record_stream(compute)
+        return dbuf, (start, end, host.numel())
+
+    def launch(item):
+        dates, codes, present, (buf, spec, kind) = item
+        tel.counter("pipeline.batches_launched")
+        copy = None
+        with timer("launch"), trace_annotation("factor_batch"):
+            if card:
+                buf, copy = copy_in(buf)
+            out = compute_packed_prepared(
+                buf, spec, kind, names=names,
+                replicate_quirks=cfg.replicate_quirks,
+                rolling_impl=cfg.rolling_impl, device=dev)
+            if card:
+                # start the device->host copy now, not at materialize
+                # time: it then overlaps the next batch's launch
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                out = (host, done)
+        inflight[0] += 1  # in flight only once the dispatch succeeded
+        tel.gauge("pipeline.inflight_batches", inflight[0])
+        return dates, codes, present, out, copy
+
+    def materialize(pending):
+        dates, codes, present, out, copy = pending
+        try:
+            with timer("device"):
+                if card:
+                    host, done = out
+                    done.synchronize()
+                    stacked = host.numpy()
+                else:
+                    stacked = out.numpy()
+        finally:
+            # the batch leaves the in-flight window whether the fetch
+            # succeeded or is about to be retried through launch()
+            inflight[0] = max(0, inflight[0] - 1)
+            tel.gauge("pipeline.inflight_batches", inflight[0])
+        if copy is not None:
+            start, end, nbytes = copy
+            tel.counter("pipeline.h2d_bytes", nbytes)
+            tel.observe("pipeline.h2d_ms", start.elapsed_time(end))
+        # build ALL day tables before touching parts: a mid-loop failure
+        # followed by the whole-batch retry must not leave day 1's rows
+        # appended twice (duplicate (code, date) rows in the cache); the
+        # boolean selections copy out of the (pinned) result buffer
+        batch_parts = []
+        for i, date in enumerate(dates):
+            sel = present[i]
+            cols = {"code": codes[sel].astype(object),
+                    "date": np.full(int(sel.sum()), date, "datetime64[D]")}
+            for j, n in enumerate(names):
+                cols[n] = stacked[j, i, sel].astype(np.float32)
+            batch_parts.append(ExposureTable(cols))
+        parts.extend(batch_parts)
+        tel.counter("pipeline.batches_completed")
+        tel.counter("pipeline.days_completed", len(dates))
+
+    consecutive = 0
+
+    def _bump_breaker(exc):
+        nonlocal consecutive
+        consecutive += 1
+        tel.gauge("pipeline.breaker_consecutive_failures", consecutive)
+        if consecutive >= _CIRCUIT_BREAKER:
+            tel.counter("pipeline.circuit_breaker_trips")
+            raise RuntimeError(
+                f"device pipeline: {consecutive} consecutive batches "
+                "failed — device looks dead; aborting (completed batches "
+                "are preserved and the cache resume will pick up from "
+                "here)") from exc
+
+    def _count_failure(dates, exc):
+        """Record-and-bump for failures with nothing to isolate
+        (single-day batches, and callers running without a ledger)."""
+        _record_batch_failure(dates, exc)
+        _bump_breaker(exc)
+
+    def _isolate_batch(dates, exc):
+        """A batch failed beyond its one retry (or failed host prep):
+        re-run each day ALONE with fresh host prep from disk, so one
+        poisoned day cannot take its batch-mates down with it — only
+        the days that fail individually are recorded. Single-day
+        batches have nothing to isolate and record directly.
+
+        Breaker policy: EVERY isolation event bumps the breaker, even
+        when all days recover solo — isolation costs 2+N launches, so a
+        device that fails every multi-day batch but passes days solo
+        must still trip the breaker after _CIRCUIT_BREAKER batches
+        rather than grind the whole file list; only a cleanly settled
+        batch resets the count."""
+        if failures is None:
+            raise exc
+        if len(dates) <= 1:
+            _count_failure(dates, exc)
+            return
+        logger.warning("batch %s failed beyond retry (%s); isolating "
+                       "per day", dates, exc)
+        tel.counter("pipeline.batch_isolations")
+        solo_fails = 0
+        for d in dates:
+            path = (path_of or {}).get(str(d), "")
+            if solo_fails >= _ISOLATION_GIVEUP:
+                tel.counter("pipeline.isolation_giveup_days")
+                failures.record(str(d), path, exc)
+                continue
+            try:
+                with timer("io"):
+                    day = dio.read_minute_day_raw(path)
+                if len(day["code"]) == 0:
+                    raise ValueError("empty day file")
+                materialize(launch(prep([(d, day)])))
+            except Exception as e2:  # noqa: BLE001 — per-day isolation
+                logger.warning("day %s failed in isolation: %s", d, e2)
+                tel.counter("pipeline.isolated_day_failures")
+                failures.record(str(d), path, e2)
+                solo_fails += 1
+        _bump_breaker(exc)
+
+    def settle(payload, launched, retried=False):
+        """materialize; on failure re-run the whole batch once, then
+        record its days as failures and trip the breaker if the device
+        looks dead."""
+        nonlocal consecutive
+        try:
+            materialize(launched)
+            consecutive = 0
+            tel.gauge("pipeline.breaker_consecutive_failures", 0)
+            return
+        except Exception as e:  # noqa: BLE001 — batch isolation
+            if not retried:
+                logger.warning("batch %s failed on device (%s); "
+                               "retrying once", payload[0], e)
+                tel.counter("pipeline.retries", stage="materialize")
+                try:
+                    relaunched = launch(payload)
+                except Exception as e2:  # noqa: BLE001
+                    _isolate_batch(payload[0], e2)
+                else:
+                    settle(payload, relaunched, retried=True)
+                return
+            _isolate_batch(payload[0], e)
+
+    pending = None  # (payload, launched)
+
+    def flush_pending():
+        """Materialize the in-flight batch NOW — called whenever the
+        pipelined ordering is about to break (a later batch failed, or
+        we are about to raise), so a healthy completed batch can never
+        be dropped on the floor by a neighbour's failure."""
+        nonlocal pending
+        if pending is not None:
+            p_, l_ = pending
+            pending = None
+            settle(p_, l_)
+
+    try:
+        while True:
+            kind, payload = q.get()
+            _note_queue_depth(q.qsize())
+            if kind == "error":
+                try:
+                    flush_pending()
+                finally:
+                    raise payload
+            if kind == "done":
+                break
+            if kind == "hostfail":
+                # host-prep failures get no same-shape retry (they are
+                # almost always deterministic — bad file, encode bug),
+                # but multi-day batches still isolate per day so one bad
+                # day's grid/encode failure cannot record its innocent
+                # batch-mates; failures count toward the breaker either
+                # way (a systemic host problem must abort, not grind
+                # through the file list recording every day)
+                dates, e = payload
+                tel.counter("pipeline.host_prep_failures")
+                flush_pending()
+                _isolate_batch(dates, e)
+                continue
+            try:
+                launched = launch(payload)
+            except Exception as e:  # noqa: BLE001 — batch isolation
+                logger.warning("batch %s failed at launch (%s); "
+                               "retrying once", payload[0], e)
+                tel.counter("pipeline.retries", stage="launch")
+                try:
+                    launched = launch(payload)
+                except Exception as e2:  # noqa: BLE001
+                    # settle the independent in-flight batch BEFORE
+                    # counting this failure (its success must not reset
+                    # the counter, and its data must survive whatever we
+                    # raise next)
+                    flush_pending()
+                    _isolate_batch(payload[0], e2)
+                    continue
+            if pending is not None:
+                settle(*pending)
+            pending = (payload, launched)
+        flush_pending()
+    except BaseException:
+        # unblock and drain the producer so an abort can't leak the
+        # daemon thread + the batches it holds
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        raise
+
+
+def _topup_missing_factors(cached, missing, all_files, minute_dir,
+                           cache_path, cfg, progress, fault_hook, device):
+    """Column top-up when a cache lacks some requested factors: compute
+    ONLY the missing factors over the cached days and merge them in
+    column-wise. Both runs grid the same day files, so the (code, date)
+    row sets must match exactly; if they don't (a day file changed on
+    disk, or a top-up day failed), fall back to the full-recompute path
+    for correctness. Returns the merged cache, or None for the fallback.
+    """
+    max_d = cached.max_date
+    overlap = [(d, p) for d, p in all_files
+               if max_d is not None and d <= max_d]
+    if not overlap:
+        logger.warning(
+            "cache %s lacks factors %s and no day files at or before its "
+            "max date remain in %s; recomputing all days", cache_path,
+            missing, minute_dir)
+        return None
+    logger.info("cache %s lacks factors %s; topping up %d cached days",
+                cache_path, missing, len(overlap))
+    topup = compute_exposures(
+        minute_dir=minute_dir, names=missing, cache_path=None, cfg=cfg,
+        progress=progress, fault_hook=fault_hook, device=device,
+        _files_override=overlap)
+    key_c = np.char.add(np.char.add(cached.columns["date"].astype(str),
+                                    "|"),
+                        cached.columns["code"].astype(str))
+    key_t = np.char.add(np.char.add(topup.columns["date"].astype(str),
+                                    "|"),
+                        topup.columns["code"].astype(str))
+    if key_c.shape != key_t.shape or not (key_c == key_t).all():
+        logger.warning(
+            "top-up rows differ from cache %s (day files changed or a "
+            "top-up day failed); recomputing all days", cache_path)
+        return None
+    for n in missing:
+        cached.columns[n] = topup.columns[n]
+    return cached
+
+
+def _read_ledger(ledger_path: str) -> List[dict]:
+    """The prior failure ledger's records; malformed content is ignored
+    with a warning, never fatal."""
+    if not os.path.exists(ledger_path):
+        return []
+    try:
+        with open(ledger_path) as fh:
+            raw = json.load(fh)
+    except (OSError, ValueError) as e:
+        logger.warning("unreadable failure ledger %s: %s", ledger_path, e)
+        return []
+    if not isinstance(raw, list):
+        logger.warning("failure ledger %s is not a list; ignoring it",
+                       ledger_path)
+        return []
+    records = [r for r in raw if isinstance(r, dict)]
+    if len(records) != len(raw):
+        logger.warning("failure ledger %s has %d malformed entries "
+                       "(ignored)", ledger_path, len(raw) - len(records))
+    return records
+
+
+def compute_exposures(
+    minute_dir: Optional[str] = None,
+    names: Optional[Sequence[str]] = None,
+    cache_path: Optional[str] = None,
+    cfg: Optional[Config] = None,
+    progress: bool = True,
+    fault_hook: Optional[Callable[[np.datetime64], None]] = None,
+    retry_failed: bool = False,
+    telemetry: Optional[Telemetry] = None,
+    device=None,
+    _files_override: Optional[Sequence] = None,
+) -> ExposureTable:
+    """Compute factor exposures for every day file, incrementally.
+
+    * runs on the card unless ``device='cpu'``; without a card it raises;
+    * the multi-factor cache at ``cache_path`` only ever GROWS factors:
+      requesting factors it lacks tops up just those columns over the
+      cached days (full recompute only if the day files no longer align),
+      and requesting a subset computes the union for new days rather
+      than pruning the cache on save. The returned table carries the
+      union; select the columns you asked for;
+    * resumes past ``cache_path``'s max cached date. A day that FAILED
+      mid-run while later days completed lies BEFORE the advanced max
+      date, so a plain re-run never retries it; it lands in the failure
+      ledger (``<cache_path>.failures.json``), and ``retry_failed=True``
+      re-lists precisely those days and recomputes them alongside any
+      new days;
+    * a failing day is logged into the returned table's ``.failures``
+      report and skipped;
+    * ``fault_hook(date)`` is the fault-injection test hook, called for
+      every day the run reads;
+    * ``telemetry`` injects a :class:`..telemetry.Telemetry` for this
+      run's metrics (default: the process-wide instance);
+    * the returned table carries ``.timings`` (per-stage seconds:
+      ``io``, ``grid``, ``wire_encode``, ``pack``, ``launch``,
+      ``device``, and ``save`` when a cache is written) and ``.reconciliation`` (stage sum vs wall with the
+      ``unattributed_s`` residual explicit — telemetry.attribution);
+    * the Config fields the port does not take (``Config.not_ported``)
+      raise NotImplementedError.
+    """
+    cfg = cfg or get_config()
+    why = cfg.not_ported()
+    if why is not None:
+        raise NotImplementedError(why)
+    dev = resolve_device(device)
+    minute_dir = minute_dir or cfg.minute_dir
+    names = tuple(names) if names is not None else factor_names()
+
+    all_files = (list(_files_override) if _files_override is not None
+                 else dio.list_day_files(minute_dir))
+
+    cached = None
+    if cache_path is not None and os.path.exists(cache_path):
+        cached = ExposureTable.load(cache_path)
+        missing = [n for n in names if n not in cached.factor_names]
+        if missing:
+            cached = _topup_missing_factors(
+                cached, missing, all_files, minute_dir, cache_path,
+                cfg, progress, fault_hook, dev)
+        if cached is not None:
+            # The persisted cache's factor set only GROWS: a subset
+            # request must never prune and overwrite a wider cache. New
+            # days therefore compute the UNION — near-free, since one
+            # batch evaluates every factor in one pass anyway.
+            extra = [n for n in cached.factor_names if n not in names]
+            if extra:
+                names = tuple(names) + tuple(extra)
+
+    files = all_files
+    if cached is not None and cached.max_date is not None:
+        files = [(d, p) for d, p in files if d > cached.max_date]
+    prior_ledger: List[dict] = []
+    if cache_path is not None:
+        prior_ledger = _read_ledger(cache_path + ".failures.json")
+    if retry_failed and cache_path is not None:
+        # Re-list the ledger's failed days (they sit at or before the
+        # cached max date, which the resume filter above skips forever).
+        retry_keys = {rec.get("key") for rec in prior_ledger}
+        retry_keys.discard(None)
+        if retry_keys:
+            have = {str(d) for d, _ in files}
+            extra = [(d, p) for d, p in all_files
+                     if str(d) in retry_keys and str(d) not in have]
+            gone = retry_keys - {str(d) for d, _ in all_files}
+            if gone:
+                logger.warning("ledger days %s no longer exist in %s",
+                               sorted(gone), minute_dir)
+            if extra:
+                logger.info("retrying %d ledger days: %s", len(extra),
+                            [str(d) for d, _ in extra])
+                files = sorted(files + extra)
+                # any good cached rows a stale ledger day may hold are
+                # dropped at MERGE time, only if the day actually
+                # produced fresh rows — dropping up front would regress
+                # the cache if the retry fails or the run aborts first
+
+    failures = FailureReport()
+    tel = telemetry if telemetry is not None else get_telemetry()
+    # a StageTimer keeps Timer's per-run totals (``.timings``) AND feeds
+    # every stage into the telemetry histograms and the profiler; the
+    # rolling_impl label says which rolling backend a run's time is for
+    timer = tel.stage_timer(rolling_impl=cfg.rolling_impl)
+    parts: List[ExposureTable] = []
+    iterator: Sequence = files
+    if progress and files:
+        try:
+            from tqdm import tqdm
+            iterator = tqdm(files, desc="day files", unit="day")
+        except ImportError:
+            pass
+
+    t0 = time.perf_counter()
+
+    def read_batches():
+        """Yield lists of (date, day-columns), one list per device batch,
+        with per-day failure isolation. The raw reader keeps integer
+        codes integer through the grid (normalized once at the batch
+        axis, _grid_batch)."""
+        batch: List[Tuple[np.datetime64, Dict[str, np.ndarray]]] = []
+        for date, path in iterator:
+            try:
+                if fault_hook is not None:
+                    fault_hook(date)
+                with timer("io"):
+                    day = dio.read_minute_day_raw(path)
+                if len(day["code"]) == 0:
+                    raise ValueError("empty day file")
+                batch.append((date, day))
+            except Exception as e:  # noqa: BLE001 — per-day isolation
+                failures.record(str(date), path, e)
+                logger.warning("skipping day %s (%s): %s", date, path, e)
+                continue
+            if len(batch) >= cfg.days_per_batch:
+                yield batch
+                batch = []
+        if batch:
+            yield batch
+
+    try:
+        _run_device_pipeline(read_batches(), names, cfg, timer, parts,
+                             failures=failures,
+                             path_of={str(d): p for d, p in files},
+                             telemetry=tel, device=dev)
+    except Exception as e:  # noqa: BLE001 — crash-consistent save below
+        # preserve every completed batch before re-raising: parts hold
+        # whole days only, so the cache written below is resume-safe and
+        # the next run continues past it
+        fatal = e
+        logger.error("pipeline aborted (%s); saving %d completed parts "
+                     "before re-raising", e, len(parts))
+    else:
+        fatal = None
+
+    new = (ExposureTable.concat(parts).sort() if parts
+           else ExposureTable.empty(names))
+    if cached is not None and len(cached):
+        keep = ["code", "date", *names]
+        cached.columns = {k: cached.columns[k] for k in keep}
+        if len(new):
+            # fresh rows win over cached rows for the same day (only
+            # reachable when a stale ledger listed a day the cache also
+            # holds and retry_failed recomputed it); whole-day grain,
+            # so a date-level drop is exact
+            new_dates = np.unique(new.columns["date"])
+            keep_rows = ~np.isin(cached.columns["date"], new_dates)
+            if not keep_rows.all():
+                cached.columns = {k: v[keep_rows]
+                                  for k, v in cached.columns.items()}
+        result = ExposureTable.concat([cached, new]).sort()
+    else:
+        result = new
+    result.failures = failures
+    if cache_path is not None and len(result):
+        # a stage of its own, inside the reconciled wall: the per-row code
+        # rendering and the parquet write are part of what a caller waits
+        with timer("save"):
+            result.save(cache_path)
+    elapsed = time.perf_counter() - t0
+    if files:
+        logger.info("computed %d factors x %d new days in %.2fs "
+                    "(%d rows, %d failed days) [%s]", len(names), len(files),
+                    elapsed, len(new), len(failures), timer.report())
+    result.timings = timer.totals()
+    # wall-clock reconciliation: sum of the timed stages vs the measured
+    # wall, unattributed residual explicit. Past-tolerance unattributed
+    # time is a measurement gap — flagged and logged, never fatal;
+    # overlap from the pipelined threads is reported separately.
+    result.reconciliation = _attribution.reconcile(
+        elapsed, result.timings, tolerance=cfg.attribution_tolerance)
+    if files:
+        tel.event("reconciliation", **result.reconciliation)
+        if not result.reconciliation["ok"]:
+            logger.warning(
+                "wall-clock reconciliation FAILED: %.2fs of %.2fs (%.0f%%)"
+                " unattributed — the stage taxonomy is missing a term "
+                "(stages: %s)",
+                result.reconciliation["unattributed_s"], elapsed,
+                100 * result.reconciliation["unattributed_frac"],
+                timer.report())
+    if cache_path is not None:
+        # Ledger persistence rule: a prior entry drops off only when the
+        # day is RESOLVED this run — it produced fresh rows (recovered)
+        # or re-entered ``failures`` (failed again, fresh error). Days a
+        # run merely listed but never reached (breaker abort, crash)
+        # keep their entries; erasing them would strand the day forever,
+        # since the resume filter skips everything at or before the
+        # cached max date.
+        resolved = (set(map(str, new.columns["date"]))
+                    | set(failures.keys()))
+        carried = [rec for rec in prior_ledger
+                   if rec.get("key") not in resolved]
+        ledger = cache_path + ".failures.json"
+        if failures or carried:
+            failures.save(ledger, carried=carried)
+        elif os.path.exists(ledger):  # nothing lost anywhere: drop it
+            os.remove(ledger)
+    if fatal is not None:
+        raise fatal
+    return result

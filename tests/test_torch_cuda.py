@@ -4,7 +4,10 @@ Every test here skips without a CUDA device: the kernels have no CPU mode.
 Window 50 runs the tiled kernel, any other window the rowwise one; the
 two give the same bits. The wire decode and the sort-based ops are plain
 torch, held card against CPU bit for bit (the CPU path is the one the
-other tests hold against the JAX package).
+other tests hold against the JAX package). The host driver's card path
+(pinned buffers, the copy stream, the result fetch) is held against its
+CPU run at tests/test_parity.py's tolerances, through ``chip_smoke.py``'s
+comparator, and against an injected launch failure.
 The module imports neither jax nor the JAX package, so on a machine with
 the card and without jax the tests run alone, past the jax set-up in
 conftest.py:
@@ -12,12 +15,21 @@ conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from replication_of_minute_frequency_factor_tpu_torch import (
     compute_batch, compute_packed)
+from replication_of_minute_frequency_factor_tpu_torch import pipeline as pl
+from replication_of_minute_frequency_factor_tpu_torch.config import Config
+from replication_of_minute_frequency_factor_tpu_torch.models import (
+    DayContext, factor_names)
+from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+    Telemetry)
 from replication_of_minute_frequency_factor_tpu_torch.data import wire
 from replication_of_minute_frequency_factor_tpu_torch.ops import (
     masked_order, rank_average)
@@ -164,3 +176,111 @@ def test_compute_packed_targets_the_card():
     buf, spec = wire.pack_arrays(enc.arrays)
     dec = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(), spec))
     assert same_bits(got, compute_batch(*dec))
+
+
+def _smoke():
+    """chip_smoke.py as a module (its day-file writer, batch rebuilder and
+    card-vs-CPU comparator); it imports neither jax nor the JAX package."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_pinned_stream_copy_is_bitwise_the_pageable_path():
+    """compute_packed_prepared from a numpy buffer, from a pinned host
+    tensor (copied on the current stream) and from a device buffer copied
+    on a side stream that the current one waits on: the same bits."""
+    _card()
+    bars, mask = wire_mode_case(11, 240, 1, 1, 4, lead=(2, 64))
+    enc = wire.encode(bars, mask)
+    buf, spec = wire.pack_arrays(enc.arrays)
+    pageable = pl.compute_packed_prepared(buf, spec, "wire")
+    pinned = torch.empty(buf.nbytes, dtype=torch.uint8, pin_memory=True)
+    wire.pack_arrays(enc.arrays, out=pinned.numpy())
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        dbuf = pinned.to("cuda", non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(side)
+    torch.cuda.current_stream().wait_event(copied)
+    dbuf.record_stream(torch.cuda.current_stream())
+    for got in (pl.compute_packed_prepared(pinned, spec, "wire"),
+                pl.compute_packed_prepared(dbuf, spec, "wire")):
+        assert got.is_cuda and same_bits(got, pageable)
+    with pytest.raises(ValueError, match="1-D uint8"):
+        pl.compute_packed_prepared(pinned.view(torch.int32), spec, "wire")
+
+
+def _day_files(tmp_path, n_days=4, n_tickers=40):
+    smoke = _smoke()
+    d = tmp_path / "kline"
+    d.mkdir()
+    synth = dict(missing_prob=0.05, zero_volume_prob=0.05,
+                 constant_price_codes=2, short_day_codes=2)
+    for i, date in enumerate(smoke.trading_dates(n_days)):
+        smoke.write_day_file(d / (date.replace("-", "") + ".parquet"), date,
+                             n_tickers, 17 + i, synth)
+    return smoke, d
+
+
+@pytest.mark.cuda
+def test_driver_on_the_card_equals_the_cpu(tmp_path):
+    """Two batches of two days through compute_exposures on the card and
+    on the CPU: the same rows, and each batch's block within
+    tests/test_parity.py's tolerances (chip_smoke phase 7's comparison)."""
+    _card()
+    smoke, d = _day_files(tmp_path)
+    cfg = Config(days_per_batch=2)
+    tel = Telemetry()
+    got = pl.compute_exposures(str(d), cfg=cfg, progress=False,
+                               telemetry=tel)
+    want = pl.compute_exposures(str(d), cfg=cfg, progress=False,
+                                device="cpu")
+    assert not got.failures and len(got) == len(want) == 4 * 40
+    for k in ("code", "date"):
+        assert np.array_equal(got.columns[k], want.columns[k])
+    reg = tel.registry
+    assert reg.counter_value("pipeline.batches_completed") == 2
+    assert reg.histogram_stats("pipeline.h2d_ms")["count"] == 2
+    assert reg.counter_value("pipeline.h2d_bytes") > 0
+    names = factor_names()
+    tables = smoke.parity_tables()
+    for dates, bars, mask, codes, present in smoke.driver_batches(d, 2):
+        a, b = (torch.from_numpy(smoke.table_block(t, dates, codes,
+                                                   present, names))
+                for t in (got, want))
+        ctx = DayContext(torch.from_numpy(bars), torch.from_numpy(mask),
+                         rolling_impl="torch")
+        kurt = {n: b[names.index(n)].double().numpy()
+                for n in ("shape_kurt", "shape_kurtVol")}
+        smoke.compare_blocks(f"driver {dates[0]}", names, a, b, tables,
+                             ctx.beta_moments()[:3], noisy=True, kurt=kurt,
+                             pdf_ctx=ctx)
+
+
+@pytest.mark.cuda
+def test_injected_launch_failure_on_the_card_loses_no_day(tmp_path,
+                                                         monkeypatch):
+    _card()
+    _, d = _day_files(tmp_path)
+    real = pl.compute_packed_prepared
+    calls = [0]
+
+    def flaky(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 1:
+            raise RuntimeError("injected launch failure")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(pl, "compute_packed_prepared", flaky)
+    tel = Telemetry()
+    t = pl.compute_exposures(str(d), cache_path=str(tmp_path / "c.parquet"),
+                             cfg=Config(days_per_batch=2), progress=False,
+                             telemetry=tel)
+    assert not t.failures and len(np.unique(t.columns["date"])) == 4
+    assert tel.registry.counter_value("pipeline.retries",
+                                      stage="launch") == 1
+    assert calls[0] == 3

@@ -88,3 +88,20 @@ def test_config_fields_carry_across(monkeypatch):
     assert tconfig.Config.from_env().rolling_impl == "torch"
     assert tconfig.Config.from_env().replicate_quirks is False
     assert jconfig.Config.from_env().replicate_quirks is False
+    # the host driver's fields: the JAX package's defaults and overrides
+    for field in ("minute_dir", "days_per_batch", "wire_transfer",
+                  "debug_validate", "attribution_tolerance"):
+        assert getattr(t, field) == getattr(j, field), field
+    assert t.days_per_batch == 8
+    monkeypatch.setenv("MFF_MINUTE_DIR", "/data/minute")
+    monkeypatch.setenv("MFF_DAYS_PER_BATCH", "3")
+    monkeypatch.setenv("MFF_ATTRIBUTION_TOLERANCE", "0.25")
+    tc, jc = tconfig.Config.from_env(), jconfig.Config.from_env()
+    for field in ("minute_dir", "days_per_batch", "attribution_tolerance"):
+        assert getattr(tc, field) == getattr(jc, field), field
+    assert (tc.minute_dir, tc.days_per_batch, tc.attribution_tolerance) \
+        == ("/data/minute", 3, 0.25)
+    # the fields the port leaves out are None, and say why when set
+    assert t.not_ported() is None
+    assert set(tconfig.NOT_PORTED) <= set(vars(j))
+    assert "item 10" in tconfig.Config(mesh_shape=(1, 2)).not_ported()

@@ -61,7 +61,36 @@ def test_importing_every_port_module_loads_no_jax():
                          timeout=300).stdout.split()
     assert "replication_of_minute_frequency_factor_tpu_torch.ops.rolling_cuda" \
         in out
+    for mod in ("pipeline", "data.io", "native", "utils.debug",
+                "telemetry.registry", "telemetry.attribution"):
+        assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
+    # pyarrow loads only inside the functions that read and write files
+    assert "pyarrow" not in out
+
+
+def test_the_native_path_loads_the_ports_library_only():
+    """Gridding and encoding through the native path maps the port's own
+    build of gridpack.cpp, never the JAX package's libgridpack.so."""
+    code = (
+        "import numpy as np\n"
+        "from replication_of_minute_frequency_factor_tpu_torch import native\n"
+        "from replication_of_minute_frequency_factor_tpu_torch.data import (\n"
+        "    grid_day, synth_day, wire)\n"
+        "d = synth_day(np.random.default_rng(0), n_codes=3)\n"
+        "g = grid_day(d['code'], d['time'], d['open'], d['high'], d['low'],\n"
+        "             d['close'], d['volume'], use_native=True)\n"
+        "wire.encode(g.bars[None], g.mask[None], use_native=True)\n"
+        "print(native.library_path())\n"
+        "print(open('/proc/self/maps').read())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    lib, maps = out.split("\n", 1)
+    assert lib in maps
+    assert Path(lib).parent == REPO / "build" / "native"
+    jax_lib = REPO / "replication_of_minute_frequency_factor_tpu" / "native"
+    assert str(jax_lib) not in maps
 
 
 def test_every_port_module_imports_here():
