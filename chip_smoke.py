@@ -55,7 +55,25 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    with one injected launch failure that loses no day and gives the same
    bits, under ``torch.profiler`` for the device's idle share; the pinned
    copy timed against a pageable one. It needs ``pyarrow`` and fails
-   without it.
+   without it;
+9. the evaluation on the card. 9a, the evaluation ops at full width: a
+   year of an A-share universe (5000 codes x 244 trading days of a seeded
+   exposure with 2% absent rows, NaN rows and ties, and a seeded daily PV
+   table), pivoted on the host as ``ic_test`` pivots it, then
+   ``ic_series``, ``_qcut_labels`` at 5 and 10 groups, ``coverage_counts``
+   and ``decile_spread`` on the card against the same calls on the CPU
+   (labels and counts bitwise, IC within tests/test_torch_masked.py's corr
+   tolerance), each timed with CUDA events. 9b, the user's path on phase
+   8's files and cache, before its temporary directory goes:
+   ``MinFreqFactor('mmt_ols_qrs').cal_exposure_by_min_data`` over the 40
+   day files into a fresh cache (one tiled launch a batch, its column
+   bitwise phase 8's), ``cal_final_exposure`` (calendar week, z),
+   ``coverage``/``ic_test``/``group_test`` (week, 5 groups, tmc) and the
+   CLI's ``evaluate`` for one factor of each of the seven families on
+   phase 8's cache, all against a PV parquet written for the 5000 codes x
+   48 dates, each on the card and on the CPU: counts and group returns
+   bitwise, IC statistics within rtol 1e-4 / atol 1e-6. Nothing draws, so
+   matplotlib is not needed.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``.
@@ -860,6 +878,17 @@ def copy_times(nbytes: int, card: str):
     return out
 
 
+def check_driver_launches(label: str, launches: dict, impl: dict,
+                          n_batches: int) -> None:
+    """Fail unless a driver run launched the tiled kernel once a batch and
+    resolved ``rolling_impl`` to ``cuda`` each time."""
+    if launches != {"tiled": n_batches, "rowwise": 0}:
+        fail(f"{label} launched {launches}; expected the tiled kernel once "
+             f"per batch ({n_batches})")
+    if impl != {("cuda", "cuda"): n_batches}:
+        fail(f"{label}: rolling impl resolved as {impl}")
+
+
 def host_driver(names, tables, card: str) -> dict:
     """Phase 8: ``compute_exposures`` at full width; see the module
     docstring. Returns the run's tiled and rowwise launch counts."""
@@ -928,11 +957,8 @@ def host_driver(names, tables, card: str) -> dict:
             f"wire={reg.counter_value('pipeline.encode_kind', kind='wire'):g}"
             f" raw={reg.counter_value('pipeline.encode_kind', kind='raw'):g}"
             f" ({card})")
-        if launches != {"tiled": n_batches, "rowwise": 0}:
-            fail(f"compute_exposures launched {launches}; expected the tiled "
-                 f"kernel once per batch ({n_batches})")
-        if impl != {("cuda", "cuda"): n_batches}:
-            fail(f"rolling impl resolved as {impl}")
+        check_driver_launches("compute_exposures", launches, impl,
+                              n_batches)
         if wire_res != {"native": n_batches} \
                 or grid_res != {"native": DRIVER_DAYS}:
             fail(f"the native encoder did not take every batch: grid "
@@ -1095,7 +1121,267 @@ def host_driver(names, tables, card: str) -> dict:
             f"{n_bytes / h2d['count']:.0f} B each, in ms (profiled): "
             + ", ".join(f"{us / 1e3:.4f}" for _, us in pinned)
             + f" ({card})")
+
+        # 9b. the user's path on these files and this cache
+        user_path(tmp, minute_dir, cache, table, dates, card)
     return launches
+
+
+#: phase 9a: a year of an A-share universe
+EVAL_CODES, EVAL_DATES = 5000, 244
+#: per-date IC: tests/test_torch_masked.py's corr tolerance; the summary
+#: statistics and the CLI's (printed to 6 decimals)
+IC_RTOL, IC_ATOL = 2e-5, 4 * float(np.finfo(np.float32).eps)
+STAT_RTOL, STAT_ATOL = 1e-4, 1e-6
+#: the factor phase 9b computes through MinFreqFactor: an mmt_ols_* one,
+#: so the path runs the tiled kernel
+USER_FACTOR = "mmt_ols_qrs"
+
+
+def hold_ic(label, got, want, rtol=IC_RTOL, atol=IC_ATOL) -> float:
+    """NaN positions identical and finite values within rtol/atol; returns
+    the largest |diff|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.array_equal(np.isnan(got),
+                                                     np.isnan(want)):
+        fail(f"{label}: shapes {got.shape}/{want.shape} or NaN positions "
+             "differ between the card and the CPU")
+    ok = ~np.isnan(want)
+    diff = np.abs(got[ok] - want[ok])
+    if (diff > atol + rtol * np.abs(want[ok])).any():
+        fail(f"{label}: the card is out of tolerance of the CPU (max |diff| "
+             f"{diff.max():.3e})")
+    return float(diff.max()) if diff.size else 0.0
+
+
+def eval_ops_full_width(tables, card: str, dev: str = "cuda") -> None:
+    """Phase 9a: the evaluation ops on a year of 5000 codes, ``dev``
+    against the CPU; see the module docstring."""
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        eval_ops, frames)
+
+    t0 = time.perf_counter()
+    codes = np.array([f"{600000 + i:06d}" for i in range(EVAL_CODES)])
+    dates = cases.weekdays(EVAL_DATES)
+    exp = cases.eval_exposure(91, codes, dates)
+    pv = cases.eval_pv(92, codes, dates)
+    log(f"phase 9a input: exposure of {len(exp['code'])} rows and PV of "
+        f"{len(pv['code'])} rows over {EVAL_CODES} codes x {EVAL_DATES} "
+        f"days, made in {time.perf_counter() - t0:.2f} s (host)")
+    # the host half of ic_test: the exposure pivot, the forward returns,
+    # their pivot onto the exposure's axes
+    host = {}
+    t0 = time.perf_counter()
+    mat, present, d_axis, c_axis = frames.long_to_matrix(
+        exp["code"], exp["date"], exp["value"])
+    host["exposure pivot"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd = frames.forward_returns(pv["code"], pv["date"], pv["pct_change"], 5)
+    host["forward returns"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd_mat, fwd_present, _, _ = frames.long_to_matrix(
+        pv["code"], pv["date"], fwd, codes=c_axis, dates=d_axis)
+    host["forward pivot"] = time.perf_counter() - t0
+    valid = present & np.isfinite(mat)
+    both = valid & fwd_present & np.isfinite(fwd_mat)
+    cpu = {k: torch.from_numpy(a) for k, a in (
+        ("x", np.nan_to_num(mat)), ("y", np.nan_to_num(fwd_mat)),
+        ("valid", valid), ("both", both))}
+    t0 = time.perf_counter()
+    on = {k: v.to(dev) for k, v in cpu.items()}
+    torch.cuda.synchronize()
+    host["copy to the device"] = time.perf_counter() - t0
+    log(f"phase 9a host (s): " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in host.items())
+        + f"; [{mat.shape[0]}, {mat.shape[1]}] f32, {int(valid.sum())} valid"
+        f" lanes, {int(both.sum())} with a 5-day forward return")
+
+    ops = {
+        "ic_series": lambda t: eval_ops.ic_series(t["x"], t["y"], t["both"]),
+        "_qcut_labels g=5": lambda t: eval_ops._qcut_labels(
+            t["x"], t["valid"], 5),
+        "_qcut_labels g=10": lambda t: eval_ops._qcut_labels(
+            t["x"], t["valid"], 10),
+        "coverage_counts": lambda t: eval_ops.coverage_counts(t["valid"]),
+        "decile_spread g=10": lambda t: eval_ops.decile_spread(
+            t["x"], t["y"], t["both"], 10),
+    }
+    for name, fn in ops.items():
+        got = fn(on)
+        t0 = time.perf_counter()
+        want = fn(cpu)
+        cpu_s = time.perf_counter() - t0
+        if name == "ic_series":
+            err = max(hold_ic(f"9a {name}[{i}]", g.cpu().numpy(),
+                              w.numpy()) for i, (g, w) in
+                      enumerate(zip(got, want)))
+            verdict = f"within rtol {IC_RTOL}, atol {IC_ATOL:.2e}; max " \
+                      f"|diff| {err:.3e}"
+        elif name.startswith("decile"):
+            err = hold_ic(f"9a {name}", got.cpu().numpy(), want.numpy(),
+                          tables["RTOL"]["default"],
+                          tables["ATOL"]["default"])
+            verdict = f"within test_parity's default tolerance; max |diff| " \
+                      f"{err:.3e}"
+        else:
+            if not cases.same_bits(got, want) or got.dtype != torch.int32:
+                fail(f"9a {name}: the card's {got.dtype} result is not "
+                     "bitwise the CPU's")
+            verdict = "bitwise equal, int32"
+        ms = cuda_times_ms(lambda: fn(on), iters=10, warmup=3)
+        log(f"phase 9a {name} [{EVAL_DATES}, {EVAL_CODES}]: card vs CPU "
+            f"{verdict}; card {spread(ms)}; CPU {cpu_s * 1e3:.1f} ms (one "
+            f"call, host clock) ({card})")
+    del on
+
+
+def run_cli(argv):
+    """The port's CLI in this process: (exit code, last stdout line as
+    JSON, seconds)."""
+    import contextlib
+    import io
+
+    from replication_of_minute_frequency_factor_tpu_torch.__main__ import (
+        main as cli)
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None), secs
+
+
+def timed(fn):
+    """(fn(), seconds), the device synchronised before the clock stops."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def user_path(tmp: Path, minute_dir: Path, cache: str, table, dates,
+              card: str, dev: str = "cuda") -> None:
+    """Phase 9b: the evaluation a user runs on phase 8's files and cache,
+    on ``dev`` and on the CPU; see the module docstring."""
+    from replication_of_minute_frequency_factor_tpu_torch import Config
+    from replication_of_minute_frequency_factor_tpu_torch.minfreq import (
+        MinFreqFactor)
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+
+    # phase 8's first 40 day files (its directory holds the resume's too)
+    kline = tmp / "kline40"
+    kline.mkdir()
+    for date in dates[:DRIVER_DAYS]:
+        name = date.replace("-", "") + ".parquet"
+        os.symlink(minute_dir / name, kline / name)
+    codes = np.unique(table.columns["code"].astype(str))
+    pv_path = str(tmp / "daily_pv.parquet")
+    t0 = time.perf_counter()
+    cases.write_pv(cases.eval_pv(93, codes, np.array(dates,
+                                                     "datetime64[D]")),
+                   pv_path)
+    log(f"phase 9b input: daily PV for {len(codes)} codes x {len(dates)} "
+        f"dates written in {time.perf_counter() - t0:.2f} s (host)")
+
+    torch.cuda.synchronize()
+    rolling_cuda.reset_launches()
+    rolling.IMPL_COUNTS.clear()
+    f, secs = timed(lambda: MinFreqFactor(USER_FACTOR, device=dev)
+                    .cal_exposure_by_min_data(
+                        minute_dir=str(kline), path=str(tmp / "factors"),
+                        cfg=Config(days_per_batch=DAYS_PER_BATCH),
+                        progress=False))
+    launches, impl = dict(rolling_cuda.launches), dict(rolling.IMPL_COUNTS)
+    n_batches = -(-DRIVER_DAYS // DAYS_PER_BATCH)
+    check_driver_launches("MinFreqFactor.cal_exposure_by_min_data",
+                          launches, impl, n_batches)
+    exp = f.factor_exposure
+    if not (np.array_equal(exp["code"].astype(str),
+                           table.columns["code"].astype(str))
+            and np.array_equal(exp["date"], table.columns["date"])
+            and np.array_equal(exp[USER_FACTOR].view(np.int32),
+                               table.columns[USER_FACTOR].view(np.int32))):
+        fail(f"MinFreqFactor({USER_FACTOR!r}): the column differs from "
+             "phase 8's")
+    log(f"phase 9b MinFreqFactor({USER_FACTOR!r}).cal_exposure_by_min_data "
+        f"over {DRIVER_DAYS} day files: wall {secs:.3f} s, launches "
+        f"{launches}, rolling impl {impl}; {len(exp['code'])} rows bitwise "
+        f"phase 8's column ({card})")
+    weekly, secs = timed(lambda: f.cal_final_exposure("week", method="z"))
+    log(f"phase 9b cal_final_exposure(week, z): "
+        f"{len(weekly.factor_exposure['code'])} rows in {secs:.3f} s (host)")
+
+    def on_cpu(fac):
+        return MinFreqFactor(fac.factor_name, device="cpu").set_exposure(
+            *(fac.factor_exposure[k] for k in ("code", "date",
+                                               fac.factor_name)))
+
+    for fac in (f, weekly):
+        twin = on_cpu(fac)
+        (got, want), walls = zip(*(timed(lambda g=g: g.coverage(
+            plot=False, return_df=True)) for g in (fac, twin)))
+        if not np.array_equal(got["coverage"], want["coverage"]):
+            fail(f"9b {fac.factor_name} coverage differs card vs CPU")
+        (got, want), walls_ic = zip(*(timed(lambda g=g: g.ic_test(
+            future_days=5, plot=False, return_df=True,
+            daily_pv_path=pv_path)) for g in (fac, twin)))
+        if not np.array_equal(got["date"], want["date"]) or not len(
+                got["date"]):
+            fail(f"9b {fac.factor_name} ic_test: kept dates differ or none")
+        err = max(hold_ic(f"9b {fac.factor_name} {k}", got[k], want[k])
+                  for k in ("IC", "rank_IC"))
+        for k in ("IC", "ICIR", "rank_IC", "rank_ICIR"):
+            hold_ic(f"9b {fac.factor_name} {k}", getattr(fac, k),
+                    getattr(twin, k), STAT_RTOL, STAT_ATOL)
+        log(f"phase 9b {fac.factor_name}: coverage bitwise card vs CPU "
+            f"(wall {walls[0]:.3f} / {walls[1]:.3f} s); ic_test "
+            f"{len(got['date'])} dates, IC {fac.IC:.6f} ICIR {fac.ICIR:.6f} "
+            f"rank_IC {fac.rank_IC:.6f} rank_ICIR {fac.rank_ICIR:.6f}, "
+            f"within tolerance of the CPU (per-date max |diff| {err:.3e}); "
+            f"wall card {walls_ic[0]:.3f} s, CPU {walls_ic[1]:.3f} s "
+            f"({card})")
+    kw = dict(frequency="week", weight_param="tmc", group_num=5, plot=False,
+              return_df=True, daily_pv_path=pv_path)
+    (got, want), walls = zip(*(timed(lambda g=g: g.group_test(**kw))
+                               for g in (f, on_cpu(f))))
+    for k in ("period", "group_return", "cum_return"):
+        if not np.array_equal(got[k], want[k], equal_nan=k != "period"):
+            fail(f"9b group_test {k} differs card vs CPU")
+    if not np.isfinite(got["group_return"]).any():
+        fail("9b group_test: no finite group return")
+    log(f"phase 9b group_test(week, 5 groups, tmc): {len(got['period'])} "
+        f"periods, group returns and cumulative returns bitwise card vs "
+        f"CPU; top-minus-bottom cumulative "
+        f"{got['cum_return'][-1, -1] - got['cum_return'][-1, 0]:+.6f}; wall "
+        f"card {walls[0]:.3f} s, CPU {walls[1]:.3f} s ({card})")
+
+    # the CLI's evaluate on phase 8's cache, one factor of each family
+    first = {}
+    for name in factor_names():
+        first.setdefault(name.split("_", 1)[0], name)
+    card_args = [] if dev == "cuda" else ["--device", dev]
+    for name in first.values():
+        argv = ["evaluate", "--factor", name, "--cache", cache,
+                "--daily-pv", pv_path, "--frequency", "week"]
+        (rc, got, secs), (rc_c, want, secs_c) = (
+            run_cli(argv + card_args), run_cli(argv + ["--device", "cpu"]))
+        if rc or rc_c or got is None or want is None \
+                or got.keys() != want.keys():
+            fail(f"9b evaluate {name}: rc {rc}/{rc_c}, {got} vs {want}")
+        for k in ("IC", "ICIR", "rank_IC", "rank_ICIR"):
+            if got[k] is None or want[k] is None:
+                fail(f"9b evaluate {name}: {k} is null")
+            hold_ic(f"9b evaluate {name} {k}", got[k], want[k], STAT_RTOL,
+                    2 * STAT_ATOL)
+        log(f"phase 9b CLI evaluate --factor {name}: {json.dumps(got)}; "
+            f"within tolerance of --device cpu; wall card {secs:.3f} s, CPU "
+            f"{secs_c:.3f} s ({card})")
 
 
 def main() -> None:
@@ -1288,8 +1574,11 @@ def main() -> None:
     log(f"card vs CPU: {n_edge} doc_pdf lanes in all differed, each inside "
         f"the PDF_EDGE_EPS = {tables['PDF_EDGE_EPS']} band")
 
-    # 8. the host driver at full width
+    # 8. the host driver at full width (and 9b, on its files and cache)
     driver_launches = host_driver(names, tables, card)
+
+    # 9a. the evaluation ops at full width
+    eval_ops_full_width(tables, card)
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"

@@ -11,12 +11,17 @@ days (numpy and the native C++ packer), the ingest wire (:mod:`.data.wire`:
 native and numpy encoders, device decode), the masked/rank/top-k/segment/
 rolling ops, ``DayContext`` and all 58 factors; two batch entry points,
 :func:`compute_batch` (bars and mask) and :func:`compute_packed` (one
-packed wire or raw buffer, decoded on the device); and the host driver,
+packed wire or raw buffer, decoded on the device); the host driver,
 :func:`compute_exposures` (day files in, the :class:`ExposureTable` cache
-out). Entry points run on the card unless the caller passes
-``device='cpu'``.
+out); the evaluation, :class:`Factor` and :class:`MinFreqFactor`
+(coverage, IC/rank-IC, the quantile group test, ``cal_final_exposure``);
+and the command line (``python -m replication_of_minute_frequency_factor_tpu_torch``).
+Entry points run on the card unless the caller passes ``device='cpu'``.
 """
 
+from .config import Config, get_config, set_config  # noqa: F401
 from .data import wire  # noqa: F401
+from .factor import Factor  # noqa: F401
+from .minfreq import MinFreqFactor  # noqa: F401
 from .pipeline import (  # noqa: F401
     ExposureTable, compute_batch, compute_exposures, compute_packed)

@@ -6,23 +6,30 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
-
-#: the JAX package's Config fields the port leaves out, and why
-NOT_PORTED = {
-    "mesh_shape": "multi-device runs are ROADMAP Queue 1 item 10",
-    "profile_dir": "profiler capture is ROADMAP Queue 1 item 9",
-    "compile_telemetry": "XLA compile telemetry has no torch counterpart",
-    "compilation_cache_dir": "eager torch has no XLA compilation cache",
-    "donate_buffers": "XLA buffer donation has no torch counterpart",
-}
+from typing import Optional
 
 
 @dataclasses.dataclass
 class Config:
+    """The JAX package's ``Config``, minus the fields the port does not
+    take yet, which a caller cannot set (``Config(mesh_shape=...)`` is a
+    TypeError): ``mesh_shape`` waits for multi-device runs (ROADMAP Queue 1
+    item 10), ``profile_dir`` for the profiler capture (item 9),
+    ``backend`` for the numpy/polars backends (item 11), and
+    ``finalize_impl`` for streaming (item 7). The XLA knobs
+    (``compile_telemetry``, ``compilation_cache_dir``, ``donate_buffers``)
+    have no torch counterpart."""
+
+    # --- data roots ---
     #: directory of per-trading-day minute-bar parquet files
     #: (YYYYMMDD*.parquet)
     minute_dir: str = "data/kline"
+    #: single parquet of daily price/volume data (CSMAR column names)
+    daily_pv_path: str = "data/price_volume.parquet"
+    #: directory where factor exposures are cached
+    factor_dir: str = "data/factors"
+
+    # --- execution ---
     #: how many trading days to batch into one device step
     days_per_batch: int = 8
     #: replicate reference quirks Q1-Q4 bit-for-bit (SURVEY.md §2.5).
@@ -37,6 +44,10 @@ class Config:
     #: version only for tensors on the CPU; 'torch' — the plain torch
     #: version, everywhere
     rolling_impl: str = "cuda"
+    #: index-pool membership parquet enabling cal_final_exposure's
+    #: stock_pool= (data/io.py read_stock_pool); None keeps the
+    #: reference's only-'full' behaviour (quirk Q9)
+    stock_pool_path: Optional[str] = None
     #: wall-clock reconciliation gate: the fraction of a run's wall time
     #: allowed to stay unattributed (no stage accounts for it) before
     #: the run is flagged (telemetry.attribution)
@@ -45,29 +56,20 @@ class Config:
     #: fewer bytes than f32 bars on typical data; falls back to f32 bars
     #: per batch when unrepresentable)
     wire_transfer: bool = True
-    #: fields of the JAX package's Config the port does not take
-    #: (:data:`NOT_PORTED` says why); ``compute_exposures`` raises
-    #: NotImplementedError when one is set
-    mesh_shape: Optional[Tuple[int, int]] = None
-    profile_dir: Optional[str] = None
-    compile_telemetry: Optional[bool] = None
-    compilation_cache_dir: Optional[str] = None
-    donate_buffers: Optional[bool] = None
-
-    def not_ported(self) -> Optional[str]:
-        """Why a set field cannot run in the port, or None."""
-        for name, why in NOT_PORTED.items():
-            if getattr(self, name) is not None:
-                return f"Config.{name} is not ported: {why}"
-        return None
 
     @classmethod
     def from_env(cls) -> "Config":
         cfg = cls()
-        if "MFF_MINUTE_DIR" in os.environ:
-            cfg.minute_dir = os.environ["MFF_MINUTE_DIR"]
-        if "MFF_ROLLING_IMPL" in os.environ:
-            cfg.rolling_impl = os.environ["MFF_ROLLING_IMPL"]
+        mapping = {
+            "MFF_MINUTE_DIR": "minute_dir",
+            "MFF_DAILY_PV_PATH": "daily_pv_path",
+            "MFF_FACTOR_DIR": "factor_dir",
+            "MFF_ROLLING_IMPL": "rolling_impl",
+            "MFF_STOCK_POOL_PATH": "stock_pool_path",
+        }
+        for env, field in mapping.items():
+            if env in os.environ:
+                setattr(cfg, field, os.environ[env])
         if "MFF_DAYS_PER_BATCH" in os.environ:
             cfg.days_per_batch = int(os.environ["MFF_DAYS_PER_BATCH"])
         if "MFF_REPLICATE_QUIRKS" in os.environ:
@@ -87,3 +89,9 @@ def get_config() -> Config:
     if _config is None:
         _config = Config.from_env()
     return _config
+
+
+def set_config(cfg: Config) -> Config:
+    global _config
+    _config = cfg
+    return cfg

@@ -7,7 +7,9 @@ driver reads and writes with:
   parsed ``%Y%m%d``;
 * the exposure cache written atomically via tempfile-then-rename, so a
   crash mid-write never corrupts it: parquet, or the framed ``.mffz``
-  format (arrow IPC + a zstd/lz4/zlib frame).
+  format (arrow IPC + a zstd/lz4/zlib frame);
+* the daily price/volume parquet with CSMAR column names renamed on load,
+  and the index stock-pool membership file the evaluation reads.
 
 ``pyarrow`` is imported inside the functions that need it, so the
 package imports on a machine without it.
@@ -25,6 +27,24 @@ import numpy as np
 from ..telemetry import get_telemetry
 
 _DATE_RE = re.compile(r"^(\d{8})")
+
+#: CSMAR -> canonical column renames (reference Factor.py:32-47)
+DAILY_PV_RENAME = {
+    "Trddt": "date",
+    "Stkcd": "code",
+    "Opnprc": "open",
+    "Hiprc": "high",
+    "Loprc": "low",
+    "Clsprc": "close",
+    "Dnshrtrd": "volume",
+    "Dnvaltrd": "amount",
+    "ChangeRatio": "pct_change",
+    "Dsmvosd": "cmc",
+    "Dsmvtll": "tmc",
+    "Adjprcwd": "close_adjust",
+    "LimitDown": "limit_down",
+    "LimitUp": "limit_up",
+}
 
 
 def parse_day_filename(name: str) -> Optional[np.datetime64]:
@@ -262,3 +282,140 @@ def write_parquet_atomic(table, path: str) -> None:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
+
+
+def coerce_dates(dates: np.ndarray) -> np.ndarray:
+    """To datetime64[D], accepting ISO strings and compact ``YYYYMMDD``
+    (CSMAR exports use both). Raises on out-of-range results instead of
+    letting numpy's year-only fallback turn ``"20240102"`` into the year
+    20240102 — a silent empty join downstream otherwise."""
+    dates = np.asarray(dates)
+    if np.issubdtype(dates.dtype, np.datetime64):
+        return dates.astype("datetime64[D]")
+    if dates.dtype.kind in "iu":  # integer YYYYMMDD
+        dates = dates.astype(str)
+    if dates.dtype.kind == "S":  # bytes -> str (str(b'x') would mangle)
+        dates = np.char.decode(dates, "utf-8")
+    if dates.dtype.kind in "UO" and len(dates):
+        stripped = np.char.strip(dates.astype(str))
+        nonempty = stripped[stripped != ""]
+        if len(nonempty) and len(nonempty[0]) == 8 and nonempty[0].isdigit():
+            dates = np.array(
+                [f"{x[:4]}-{x[4:6]}-{x[6:8]}"
+                 if len(x) == 8 and x.isdigit() else "NaT"
+                 for x in stripped])
+    out = np.asarray(dates, dtype="datetime64[D]")
+    ok = ~np.isnat(out)  # missing dates stay NaT (they drop from joins)
+    if ok.any():
+        years = out[ok].astype("datetime64[Y]").astype(int) + 1970
+        if years.min() < 1900 or years.max() > 2200:
+            raise ValueError(
+                f"unparseable trading dates (years {years.min()}-"
+                f"{years.max()}): expected ISO YYYY-MM-DD or compact "
+                "YYYYMMDD strings")
+    return out
+
+
+def read_stock_pool(path: str, pool: str,
+                    dates: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Membership ``(codes, dates)`` pairs of an index stock pool.
+
+    The reference only *advertises* index pools (hs300/zz500/zz1000 in the
+    ``cal_final_exposure`` docstring) and raises for them (quirk Q9,
+    MinuteFrequentFactorCICC.py:137-140); this is the working
+    implementation behind ``Config.stock_pool_path``. Two schemas:
+
+    * exact rows: columns ``code, date, pool`` — one row per member-day;
+    * intervals (CSMAR constituent files): columns ``code, in_date,
+      out_date, pool`` — member while ``in_date <= d < out_date``
+      (null/NaT ``out_date`` = still a member), expanded onto the given
+      trading ``dates``.
+
+    ``pool`` selects rows by the ``pool`` column (absent column = the file
+    is a single pool). Codes normalise to zero-padded 6-char strings.
+    """
+    import pyarrow.parquet as pq
+
+    names = pq.read_schema(path).names
+    interval = "in_date" in names
+    cols = ["code"] + (["in_date", "out_date"] if interval else ["date"])
+    if "pool" in names:
+        cols.append("pool")
+    raw = read_columns(path, cols)
+    code = np.asarray(raw["code"])
+    if code.dtype.kind in "iu":
+        code = int_codes_to_str(code)
+    code = code.astype(object)
+    keep = np.ones(len(code), bool)
+    if "pool" in raw:
+        pools = np.asarray(raw["pool"]).astype(str)
+        keep = pools == pool
+        if not keep.any():
+            raise ValueError(
+                f"stock pool {pool!r} matches no rows in {path}; "
+                f"available pools: {sorted(set(pools))}")
+    dates = np.sort(np.asarray(dates, "datetime64[D]"))
+    if not interval:
+        d = coerce_dates(raw["date"])[keep]
+        return code[keep], d
+    in_d = coerce_dates(raw["in_date"])[keep]
+    out_d = coerce_dates(raw["out_date"])[keep]
+    code = code[keep]
+    far = np.datetime64("2200-01-01", "D")
+    out_d = np.where(np.isnat(out_d), far, out_d)
+    mcodes, mdates = [], []
+    for c, lo, hi in zip(code, in_d, out_d):
+        a = np.searchsorted(dates, lo, side="left")
+        b = np.searchsorted(dates, hi, side="left")
+        if b > a:
+            mcodes.append(np.full(b - a, c, object))
+            mdates.append(dates[a:b])
+    if not mcodes:
+        return (np.array([], object), np.array([], "datetime64[D]"))
+    return np.concatenate(mcodes), np.concatenate(mdates)
+
+
+def membership_filter(code: np.ndarray, date: np.ndarray,
+                      pool_code: np.ndarray,
+                      pool_date: np.ndarray) -> np.ndarray:
+    """Boolean mask of rows whose ``(code, date)`` is in the membership."""
+    if len(pool_code) == 0:
+        return np.zeros(len(code), bool)
+    key = np.char.add(np.asarray(code, str),
+                      np.asarray(date, "datetime64[D]").astype(str))
+    pkey = np.unique(np.char.add(np.asarray(pool_code, str),
+                                 np.asarray(pool_date,
+                                            "datetime64[D]").astype(str)))
+    idx = np.searchsorted(pkey, key)
+    idx = np.minimum(idx, len(pkey) - 1)
+    return pkey[idx] == key
+
+
+def read_daily_pv(
+    path: str,
+    columns: Optional[Sequence[str]] = None,
+) -> Dict[str, np.ndarray]:
+    """Daily price/volume loader with the CSMAR rename table applied.
+
+    ``columns`` selects *canonical* names (post-rename), mirroring the
+    reference's projection kwarg (Factor.py:21-31). Dates parse to
+    datetime64[D]; ``code`` normalises to zero-padded 6-char strings.
+    """
+    import pyarrow.parquet as pq
+
+    schema_names = pq.read_schema(path).names
+    rename = {k: v for k, v in DAILY_PV_RENAME.items() if k in schema_names}
+    inv = {v: k for k, v in rename.items()}
+    if columns is None:
+        read = schema_names
+    else:
+        read = [inv.get(c, c) for c in columns]
+    raw = read_columns(path, read)
+    out = {}
+    for k, v in raw.items():
+        out[rename.get(k, k)] = v
+    if "date" in out:
+        out["date"] = coerce_dates(out["date"])
+    if "code" in out and out["code"].dtype.kind in "iu":
+        out["code"] = int_codes_to_str(out["code"])
+    return out

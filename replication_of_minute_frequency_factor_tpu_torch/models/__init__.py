@@ -12,6 +12,7 @@ from .registry import (  # noqa: F401
     compute_factors,
     factor_names,
     register,
+    register_alias,
     resolve,
 )
 

@@ -11,6 +11,10 @@ from .context import DayContext
 #: module is imported first)
 FACTORS: Dict[str, Callable] = {}
 
+#: user-defined names -> kernel; consulted after FACTORS, never reported by
+#: :func:`factor_names` (keeps the canonical set closed for parity suites)
+ALIASES: Dict[str, Callable] = {}
+
 
 def register(name: str):
     def deco(fn):
@@ -19,9 +23,25 @@ def register(name: str):
     return deco
 
 
+def register_alias(name: str, kernel) -> None:
+    """Expose a kernel (an existing name or an ad-hoc ``fn(ctx)``) under a
+    user-chosen factor name (MinFreqFactor's ``calculate_method=``).
+
+    The JAX package also files the alias under a finalize class for its
+    streaming fast path; the port keeps no finalize classes until
+    streaming is ported (ROADMAP Queue 1 item 7)."""
+    if isinstance(kernel, str):
+        kernel = FACTORS[kernel]
+    ALIASES[name] = kernel
+
+
 def resolve(name: str) -> Callable:
     try:
         return FACTORS[name]
+    except KeyError:
+        pass
+    try:
+        return ALIASES[name]
     except KeyError:
         raise KeyError(f"unknown factor {name!r}") from None
 

@@ -812,14 +812,9 @@ def compute_exposures(
     * the returned table carries ``.timings`` (per-stage seconds:
       ``io``, ``grid``, ``wire_encode``, ``pack``, ``launch``,
       ``device``, and ``save`` when a cache is written) and ``.reconciliation`` (stage sum vs wall with the
-      ``unattributed_s`` residual explicit — telemetry.attribution);
-    * the Config fields the port does not take (``Config.not_ported``)
-      raise NotImplementedError.
+      ``unattributed_s`` residual explicit — telemetry.attribution).
     """
     cfg = cfg or get_config()
-    why = cfg.not_ported()
-    if why is not None:
-        raise NotImplementedError(why)
     dev = resolve_device(device)
     minute_dir = minute_dir or cfg.minute_dir
     names = tuple(names) if names is not None else factor_names()

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from replication_of_minute_frequency_factor_tpu_torch import (
-    compute_batch, compute_packed)
+    compute_batch, compute_packed, eval_ops, pins)
 from replication_of_minute_frequency_factor_tpu_torch import pipeline as pl
 from replication_of_minute_frequency_factor_tpu_torch.config import Config
 from replication_of_minute_frequency_factor_tpu_torch.models import (
@@ -36,8 +36,8 @@ from replication_of_minute_frequency_factor_tpu_torch.ops import (
 from replication_of_minute_frequency_factor_tpu_torch.ops import rolling
 from replication_of_minute_frequency_factor_tpu_torch.ops import rolling_cuda
 from torch_cases import (
-    WIRE_MODE_CASES, crafted_rows, expected_wire_modes, same_bits,
-    wire_mode_case)
+    WIRE_MODE_CASES, crafted_rows, eval_matrices, expected_wire_modes,
+    qcut_cases, same_bits, wire_mode_case)
 
 W = 50
 
@@ -164,6 +164,38 @@ def test_rank_average_card_equals_cpu(lanes):
     xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
     for fn in (rank_average, masked_order):
         assert same_bits(fn(xt.cuda(), mt.cuda()), fn(xt, mt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group_num", [3, 5, 10])
+def test_qcut_labels_card_equals_cpu(group_num):
+    """The quantile labels on the card are bitwise the CPU's (the CPU's
+    are bitwise the JAX package's): the crafted cross-sections and a
+    full-width tie-heavy year."""
+    _card()
+    x, _, valid = eval_matrices(group_num, 244, 5000)
+    for xs, ms, nan_lanes in [(x, valid, ~valid), *qcut_cases().values()]:
+        xt, mt, nt = (torch.from_numpy(a) for a in (xs, ms, nan_lanes))
+        with pins.pinned(qcut_nan="top_bin"):
+            got = eval_ops.qcut_labels(xt.cuda(), mt.cuda(), group_num,
+                                       nan_lanes=nt.cuda())
+            want = eval_ops.qcut_labels(xt, mt, group_num, nan_lanes=nt)
+        assert same_bits(got, want)
+        assert same_bits(eval_ops.coverage_counts(mt.cuda()),
+                         eval_ops.coverage_counts(mt))
+
+
+@pytest.mark.cuda
+def test_ic_series_card_within_tolerance_of_cpu():
+    _card()
+    args = [torch.from_numpy(a) for a in eval_matrices(8, 244, 5000)]
+    got = eval_ops.ic_series(*(a.cuda() for a in args))
+    want = eval_ops.ic_series(*args)
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=4 * 2.0**-23,
+                                   equal_nan=True)
 
 
 @pytest.mark.cuda

@@ -89,19 +89,26 @@ def test_config_fields_carry_across(monkeypatch):
     assert tconfig.Config.from_env().replicate_quirks is False
     assert jconfig.Config.from_env().replicate_quirks is False
     # the host driver's fields: the JAX package's defaults and overrides
-    for field in ("minute_dir", "days_per_batch", "wire_transfer",
-                  "debug_validate", "attribution_tolerance"):
+    # ... and the evaluation's data roots and stock-pool file
+    fields = ("minute_dir", "days_per_batch", "wire_transfer",
+              "debug_validate", "attribution_tolerance", "daily_pv_path",
+              "factor_dir", "stock_pool_path")
+    for field in fields:
         assert getattr(t, field) == getattr(j, field), field
     assert t.days_per_batch == 8
     monkeypatch.setenv("MFF_MINUTE_DIR", "/data/minute")
     monkeypatch.setenv("MFF_DAYS_PER_BATCH", "3")
     monkeypatch.setenv("MFF_ATTRIBUTION_TOLERANCE", "0.25")
+    monkeypatch.setenv("MFF_DAILY_PV_PATH", "/data/pv.parquet")
+    monkeypatch.setenv("MFF_FACTOR_DIR", "/data/factors")
+    monkeypatch.setenv("MFF_STOCK_POOL_PATH", "/data/pool.parquet")
     tc, jc = tconfig.Config.from_env(), jconfig.Config.from_env()
-    for field in ("minute_dir", "days_per_batch", "attribution_tolerance"):
+    for field in fields:
         assert getattr(tc, field) == getattr(jc, field), field
-    assert (tc.minute_dir, tc.days_per_batch, tc.attribution_tolerance) \
-        == ("/data/minute", 3, 0.25)
-    # the fields the port leaves out are None, and say why when set
-    assert t.not_ported() is None
-    assert set(tconfig.NOT_PORTED) <= set(vars(j))
-    assert "item 10" in tconfig.Config(mesh_shape=(1, 2)).not_ported()
+    assert (tc.minute_dir, tc.days_per_batch, tc.attribution_tolerance,
+            tc.daily_pv_path, tc.factor_dir, tc.stock_pool_path) \
+        == ("/data/minute", 3, 0.25, "/data/pv.parquet", "/data/factors",
+            "/data/pool.parquet")
+    # every port field is a JAX field; the others are not fields at all
+    assert {f.name for f in dataclasses.fields(t)} <= set(vars(j))
+    assert not hasattr(t, "mesh_shape") and not hasattr(t, "not_ported")

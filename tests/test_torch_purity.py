@@ -62,11 +62,15 @@ def test_importing_every_port_module_loads_no_jax():
     assert "replication_of_minute_frequency_factor_tpu_torch.ops.rolling_cuda" \
         in out
     for mod in ("pipeline", "data.io", "native", "utils.debug",
-                "telemetry.registry", "telemetry.attribution"):
+                "telemetry.registry", "telemetry.attribution", "config",
+                "frames", "eval_ops", "plotting", "factor", "minfreq",
+                "__main__"):
         assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
-    # pyarrow loads only inside the functions that read and write files
+    # pyarrow loads only inside the functions that read and write files,
+    # matplotlib only inside the ones that draw
     assert "pyarrow" not in out
+    assert [m for m in out if m.split(".")[0] == "matplotlib"] == []
 
 
 def test_the_native_path_loads_the_ports_library_only():

@@ -94,3 +94,110 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return a.shape == b.shape and torch.equal(a, b.to(a.device))
+
+
+#: group counts the quantile labels are held at: 3, 6, 7 and 10 are among
+#: those where torch.linspace's levels differ from jnp.linspace's
+QCUT_GROUPS = (2, 3, 5, 6, 7, 10, 20)
+
+
+def weekdays(n: int, start: str = "2024-01-02") -> np.ndarray:
+    """``n`` weekdays from ``start`` (a stand-in trading calendar)."""
+    days = np.arange(np.datetime64(start, "D"),
+                     np.datetime64(start, "D") + 2 * n + 7)
+    return days[(days.astype(np.int64) + 3) % 7 < 5][:n]
+
+
+def eval_exposure(seed: int, codes, dates, absent: float = 0.02,
+                  nan: float = 0.01, tie_step: float = 0.05):
+    """A seeded long-format exposure ``{code, date, value}`` over ``codes``
+    x ``dates`` (date-major, as a cache is sorted): normal values rounded
+    to ``tie_step`` on every other code (heavy ties), an ``absent`` share of
+    rows dropped and a ``nan`` share of the rest NaN."""
+    rng = np.random.default_rng(seed)
+    dd, cc = np.meshgrid(np.asarray(dates, "datetime64[D]"),
+                         np.asarray(codes), indexing="ij")
+    v = rng.normal(0, 1, dd.shape)
+    v[:, ::2] = np.round(v[:, ::2] / tie_step) * tie_step
+    v[rng.random(dd.shape) < nan] = np.nan
+    keep = rng.random(dd.shape) >= absent
+    return {"code": cc[keep].astype(object), "date": dd[keep],
+            "value": v[keep].astype(np.float32)}
+
+
+def eval_pv(seed: int, codes, dates, absent: float = 0.03):
+    """A seeded daily PV table ``{code, date, pct_change, tmc, cmc}`` over
+    ``codes`` x ``dates``, code-major, an ``absent`` share of rows dropped
+    (suspended days); caps are constant per code, cmc 0.7 of tmc."""
+    rng = np.random.default_rng(seed)
+    cc, dd = np.meshgrid(np.asarray(codes), np.asarray(dates,
+                                                       "datetime64[D]"),
+                         indexing="ij")
+    keep = rng.random(cc.shape) >= absent
+    pct = rng.normal(0, 0.02, cc.shape)
+    mc = np.broadcast_to(rng.uniform(1e9, 5e10, (cc.shape[0], 1)), cc.shape)
+    return {"code": cc[keep].astype(str), "date": dd[keep],
+            "pct_change": pct[keep], "tmc": mc[keep], "cmc": 0.7 * mc[keep]}
+
+
+def write_pv(pv: dict, path) -> None:
+    """``eval_pv``'s table as the parquet ``Factor`` reads."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    pq.write_table(pa.table({
+        "code": pa.array([str(c) for c in pv["code"]]),
+        "date": pa.array(np.asarray(pv["date"], "datetime64[D]")),
+        **{k: pa.array(np.asarray(pv[k], np.float64))
+           for k in ("pct_change", "tmc", "cmc")}}), str(path))
+
+
+def eval_matrices(seed: int, n_dates: int, n_codes: int,
+                  absent: float = 0.02):
+    """Dense ``[dates, codes]`` evaluation inputs: an f32 exposure with
+    ties (half the lanes on a 0.05 grid), an f32 forward return loosely
+    tied to it, and ``valid`` with an ``absent`` share of lanes cleared
+    (their values garbage, as a pivot's NaN through ``nan_to_num``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (n_dates, n_codes))
+    x[:, ::2] = np.round(x[:, ::2] / 0.05) * 0.05
+    fwd = 0.01 * x + rng.normal(0, 0.02, x.shape)
+    valid = rng.random(x.shape) >= absent
+    x = np.where(valid, x, 0.0).astype(np.float32)
+    fwd = np.where(valid, fwd, 0.0).astype(np.float32)
+    return x, fwd, valid
+
+
+def qcut_cases():
+    """``{name: (exposure [D, T] f32, valid [D, T], nan_lanes [D, T])}``:
+    the cross-sections a quantile cut must place exactly. ``nan_lanes``
+    marks value-NaN lanes (present, not valid; the exposure there is 0, as
+    after ``nan_to_num``)."""
+    rng = np.random.default_rng(90)
+    out = {}
+    x = rng.normal(size=(6, 97)).astype(np.float32)
+    m = rng.random(x.shape) > 0.15
+    out["random"] = (x, m)
+    # tests/test_factor_eval.py's duplicate-break case: a 0.1 grid
+    x = np.round(rng.normal(0, 1, (3, 40)), 1).astype(np.float32)
+    out["duplicate_breaks"] = (x, rng.random(x.shape) > 0.2)
+    x = (rng.integers(-3, 4, (4, 64)) * 0.1).astype(np.float32)
+    out["few_values"] = (x, rng.random(x.shape) > 0.1)
+    # fuzz seed 6290: a [v, v] cross-section of a value f32 cannot hold
+    vals = np.array([-0.1, 0.3, 1e-7, -3.3333, 2.5], np.float32)
+    x = np.repeat(vals[:, None], 8, axis=1)
+    m = np.zeros(x.shape, bool)
+    m[:, :2] = True
+    out["fuzz_6290_pairs"] = (x, m)
+    # one valid lane; every lane one value; every lane invalid; signed zeros
+    x = np.stack([np.ones(8), np.full(8, 2.5), rng.normal(size=8),
+                  np.where(np.arange(8) % 2, -0.0, 0.0)]).astype(np.float32)
+    m = np.ones(x.shape, bool)
+    m[0] = np.arange(8) == 3
+    m[2] = False
+    out["degenerate"] = (x, m)
+    cases = {}
+    for name, (x, m) in out.items():
+        nan_lanes = ~m & (rng.random(x.shape) < 0.3)
+        cases[name] = (x, m, nan_lanes)
+    return cases
