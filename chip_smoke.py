@@ -73,10 +73,32 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    phase 8's cache, all against a PV parquet written for the 5000 codes x
    48 dates, each on the card and on the CPU: counts and group returns
    bitwise, IC statistics within rtol 1e-4 / atol 1e-6. Nothing draws, so
-   matplotlib is not needed.
+   matplotlib is not needed;
+10. the intraday streaming engine at full width on phase 4's first day
+   (5000 tickers x ``cn_ashare_240``, all 58 factors, ``rolling_impl=
+   'cuda'``): three warm engines (exact, fast, and one through the plain
+   rolling version) fold the day in 16-minute micro-batches; the exact
+   snapshots at minutes 60, 120 and 240 are bitwise ``compute_batch`` on
+   the card for the same prefix, each one tiled launch with the impl
+   resolved ``cuda``; at 60 and 240 the kernel's snapshot agrees with the
+   plain engine's within the parity suite's tolerances; the fast finalize
+   holds every factor's pin (``parity_report``); ``snapshot_wire_stats``
+   decodes within ``RESULT_BOUNDS`` with exact NaN status, its stats'
+   counts/min/max are bitwise the host sketch's, and the exposures do not
+   change with the side outputs; no callable is built after warmup; the
+   day again as 240 cohorts of 5000 rows + advance leaves every carry leaf
+   bitwise the scan path's; a save at minute 120 restored into a fresh
+   engine finishes bitwise; the tiled kernel on the minute-60 prefix mask
+   against its plain version and the rowwise kernel. Then phase 4's batch
+   through ``compute_packed_prepared(..., result_spec=, factor_stats=True)``
+   (the spill floor grown until nothing overflows), with the same holds
+   and the payload/raw byte ratio. Update, cohort and snapshot times by
+   CUDA events, the carry's bytes and the peak memory.
 
 The second-to-last line of stdout is a JSON object with one entry per
-kernel; the last is ``{"ok": true, "device": {...}}``.
+kernel and path (the tiled kernel on the host driver's batches and on the
+streaming snapshots, the rowwise kernel on the window-20 path); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1384,6 +1406,405 @@ def user_path(tmp: Path, minute_dir: Path, cache: str, table, dates,
             f"{secs_c:.3f} s ({card})")
 
 
+#: phase 10: the streaming day's micro-batch, the exact snapshots' minutes
+#: (the micro-batches are cut there, so the load also runs 12- and 8-minute
+#: ones: 60 = 3 x 16 + 12, 120 - 60 likewise, 240 - 120 = 7 x 16 + 8), the
+#: minutes of the timed snapshots, the stream wire's spill floor (the
+#: default 4 rows overflow on this day: 10 one-day slices widen at minute
+#: 60 in a CPU check)
+STREAM_MICRO = 16
+STREAM_SNAPSHOTS = (60, 120, 240)
+#: stat_fold factors whose STAT_FOLD_BOUNDS pin the JAX package's own fast
+#: formula misses on this day: vol_range1min on synth_day's tight
+#: high/low spreads (the std of high/low sits near f32's resolution at
+#: 1.0; tests/test_torch_fastpath.py::test_range_pin_misses_on_tight_
+#: spreads_as_the_jax_formula_does), and the two skew/kurtosis ratios on
+#: any ticker whose excess kurtosis is about 0, which 5000 tickers hold
+#: (test_skratio_pin_misses_where_the_kurtosis_crosses_zero_as_jax_does).
+#: They are held to the formula itself, evaluated on the CPU from the
+#: card's carry, instead of to the pin
+FAST_PIN_REFERENCE_MISSES = ("vol_range1min", "shape_skratio",
+                             "shape_skratioVol")
+#: the card's fast values against that CPU evaluation (sqrt and pow may
+#: round differently on the two devices)
+FAST_FORMULA_RTOL = 1e-6
+STREAM_TIMED = (60, 240)
+STREAM_SPILL_ROWS = 16
+
+
+def carry_leaves_equal(a: dict, b: dict) -> list:
+    """The keys of two saved carries whose arrays differ (NaN equal to
+    NaN)."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not np.array_equal(a[k], b[k],
+                                        equal_nan=a[k].dtype.kind == "f"))
+
+
+def hold_wire_and_stats(label, names, raw, payload, stats, spec,
+                        days: int) -> dict:
+    """The payload decodes within RESULT_BOUNDS of the raw block with exact
+    NaN status (no slice past the spill budget), and the stats' counts,
+    min and max are bitwise ``factor_stats_host`` of the fetched raw
+    block. Returns the decode's verdict."""
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, factorplane)
+
+    raw = raw.cpu().numpy().reshape(len(names), days, -1)
+    dec, verdict = rw.decode_block(payload.cpu().numpy(), len(names), days,
+                                   raw.shape[-1], spec.spill_rows,
+                                   strict=False, telemetry=Telemetry())
+    if verdict["overflow"]:
+        fail(f"{label}: {verdict['overflow']} widened slices overflow the "
+             f"{spec.spill_rows}-row spill budget")
+    if not np.array_equal(np.isnan(dec), np.isnan(raw)):
+        fail(f"{label}: the decode's NaN status differs from the raw block")
+    chk = rw.check_bounds(raw, dec, names, sidx=verdict["sidx"])
+    if not chk["ok"]:
+        fail(f"{label}: the decode misses RESULT_BOUNDS for "
+             f"{chk['bad_factors']}")
+    host = factorplane.factor_stats_host(raw)
+    got = stats.cpu().numpy()
+    for col, field in ((0, "lanes"), (1, "finite"), (2, "nan"),
+                       (3, "posinf"), (4, "neginf"), (7, "min"), (8, "max")):
+        if not np.array_equal(got[:, col], host[:, col], equal_nan=True):
+            fail(f"{label}: stats {field} differ from factor_stats_host")
+    with np.errstate(invalid="ignore"):
+        rel = np.nanmax(np.abs(got[:, 5:7] - host[:, 5:7])
+                        / np.maximum(np.abs(host[:, 5:7]), 1e-30))
+    verdict["stats_moment_rel"] = float(rel)
+    verdict["max_rel_err"] = chk["max_rel_err"]
+    return verdict
+
+
+def streaming_path(bars, mask, tables, card: str) -> dict:
+    """Phase 10: the intraday streaming engine at full width on phase 4's
+    first day, and the packed path's side outputs on phase 4's batch; see
+    the module docstring. Returns the kernels line's entry for the
+    snapshot path's tiled kernel."""
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        StreamEngine, compute_batch, pipeline)
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        DayContext, factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.stream import (
+        carry as sc)
+    from replication_of_minute_frequency_factor_tpu_torch.stream import (
+        fastpath)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry)
+
+    names = factor_names()
+    day_bars, day_mask = bars[0], mask[0]
+    n, s = day_mask.shape
+    log(f"phase 10 input: phase 4's first day, {n} tickers x {s} slots, "
+        f"{int(day_mask.sum())} bars; all {len(names)} factors, "
+        f"micro-batches of {STREAM_MICRO} minutes")
+
+    def prefix(t_stop):
+        return cases.prefix_day(day_bars, day_mask, t_stop)
+
+    def micro(lo, hi):
+        return cases.minutes_of(day_bars, day_mask, lo, hi)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tel = Telemetry()
+    engines = {}
+    for label, kw in (("exact", {}),
+                      ("fast", {"finalize_impl": "fast"}),
+                      ("torch", {"rolling_impl": "torch"})):
+        kw.setdefault("rolling_impl", "cuda")
+        eng = StreamEngine(n, names=names, telemetry=tel, device="cuda",
+                           **kw)
+        eng.result_spec = rw.ResultWireSpec.for_names(
+            names, spill_rows=STREAM_SPILL_ROWS, days=1)
+        eng.warmup(micro_batches=(STREAM_MICRO, 12, 8), cohorts=(n,))
+        engines[label] = eng
+    exact, fast, plain = engines["exact"], engines["fast"], engines["torch"]
+    if fast.finalize_impl_resolved != "fast":
+        fail("phase 10: the fast engine resolved "
+             f"{fast.finalize_impl_resolved!r}")
+    reg = tel.registry
+    built = reg.counter_value("serve.executables", outcome="miss")
+    log(f"phase 10 warmup: {int(built)} callables built for 3 engines "
+        f"(exact, fast, torch); kernel library loaded")
+
+    update_ms, update_wall = [], []
+    snap_ms = {"exact": {}, "fast": {}}
+    stream_launches = {"tiled": 0, "rowwise": 0}
+    saved_120 = None
+    snaps = {}
+    lo = 0
+    for stop in STREAM_SNAPSHOTS:
+        while lo < stop:
+            hi = min(lo + STREAM_MICRO, stop)
+            b, p = micro(lo, hi)
+            for label, eng in engines.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                eng.ingest_minutes(b, p)
+                end.record()
+                torch.cuda.synchronize()
+                if label == "exact" and hi - lo == STREAM_MICRO:
+                    update_wall.append((time.perf_counter() - t0) * 1e3)
+                    update_ms.append(start.elapsed_time(end))
+            lo = hi
+        # the exact snapshot: one tiled launch, resolved cuda
+        torch.cuda.synchronize()
+        rolling_cuda.reset_launches()
+        rolling.IMPL_COUNTS.clear()
+        exp, ready = exact.snapshot()
+        torch.cuda.synchronize()
+        launches, impl = dict(rolling_cuda.launches), dict(rolling.IMPL_COUNTS)
+        if launches != {"tiled": 1, "rowwise": 0}:
+            fail(f"phase 10 exact snapshot at minute {stop} launched "
+                 f"{launches}; expected the tiled kernel once")
+        if impl != {("cuda", "cuda"): 1}:
+            fail(f"phase 10 snapshot at minute {stop}: rolling impl {impl}")
+        stream_launches["tiled"] += launches["tiled"]
+        pb, pm = prefix(stop)
+        want = compute_batch(pb, pm, device="cuda", rolling_impl="cuda")
+        if not cases.same_bits(exp, want):
+            fail(f"phase 10 exact snapshot at minute {stop} differs from "
+                 "compute_batch on the card for the same prefix")
+        snaps[stop] = (exp, ready)
+        # the fast snapshot: the foldable factors from the carry's
+        # statistics, the batch_only residual (mmt_ols_* among it) over
+        # the prefix: one tiled launch
+        rolling_cuda.reset_launches()
+        f_exp, f_ready = fast.snapshot()
+        torch.cuda.synchronize()
+        stream_launches["tiled"] += rolling_cuda.launches["tiled"]
+        if dict(rolling_cuda.launches) != {"tiled": 1, "rowwise": 0}:
+            fail(f"phase 10 fast snapshot at minute {stop} launched "
+                 f"{dict(rolling_cuda.launches)}")
+        if not torch.equal(f_ready, ready):
+            fail(f"phase 10 fast snapshot at minute {stop}: readiness "
+                 "differs from the exact engine's")
+        e_host, f_host = exp.cpu().numpy(), f_exp.cpu().numpy()
+        reports = [fastpath.parity_report(nm, e_host[j], f_host[j])
+                   for j, nm in enumerate(names)]
+        bad = [r["name"] for r in reports if not r["ok"]
+               and r["name"] not in FAST_PIN_REFERENCE_MISSES]
+        if bad:
+            fail(f"phase 10 fast finalize at minute {stop}: {bad} miss "
+                 "their pins against the exact engine")
+        # the formula on the CPU over the card's own carry leaves
+        fold = fast.fold_names
+        cpu_fast = fastpath.stream_finalize_fast(
+            {k: v.cpu() for k, v in fast.carry["inc"].items()},
+            fold).numpy()
+        on_card = f_host[[names.index(nm) for nm in fold]]
+        if not (np.array_equal(np.isnan(on_card), np.isnan(cpu_fast))
+                and np.allclose(on_card, cpu_fast, rtol=FAST_FORMULA_RTOL,
+                                atol=0, equal_nan=True)):
+            fail(f"phase 10 fast finalize at minute {stop}: the card's "
+                 "values differ from the formula evaluated on the CPU")
+        n_formula_bitwise = sum(
+            np.array_equal(on_card[i], cpu_fast[i], equal_nan=True)
+            for i in range(len(fold)))
+        missed = {r["name"]: r["max_excess"] for r in reports
+                  if not r["ok"]}
+        log(f"phase 10 minute {stop}: exact snapshot {tuple(exp.shape)} "
+            f"bitwise compute_batch on the card for the prefix; one tiled "
+            f"launch each for the exact and the fast snapshot; fast finalize"
+            f": {sum(r['ok'] for r in reports)}/{len(names)} factors within "
+            f"their pins (exact_fold and batch_only bitwise); outside, as "
+            f"the JAX formula is on this data: {missed}; the {len(fold)} "
+            f"foldable factors within rtol {FAST_FORMULA_RTOL} of the formula"
+            f" on the CPU over the card's carry ({n_formula_bitwise} "
+            "bitwise)")
+        if stop in STREAM_TIMED:
+            for label, eng in (("exact", exact), ("fast", fast)):
+                snap_ms[label][stop] = cuda_times_ms(
+                    lambda: eng.snapshot(), iters=10, warmup=2)
+            # the kernel through the plain version: the torch engine
+            t_exp = plain.snapshot()[0]
+            ctx = DayContext(torch.from_numpy(pb).cuda(),
+                             torch.from_numpy(pm).cuda(),
+                             rolling_impl="torch")
+            kurt = {k: t_exp[names.index(k)].double().cpu().numpy()
+                    for k in ("shape_kurt", "shape_kurtVol")}
+            worst_used, n_bitwise, _ = compare_blocks(
+                f"phase 10 cuda-vs-torch minute {stop}", names, exp, t_exp,
+                tables, ctx.beta_moments()[:3], kurt=kurt)
+            log(f"phase 10 minute {stop}: the snapshot through the kernel "
+                f"agrees with the rolling_impl='torch' engine ({n_bitwise} "
+                f"factors bitwise; worst value used {worst_used:.2e} of its "
+                f"tolerance)")
+        if stop == 120:
+            saved_120 = exact.save()
+    # the side outputs on the last snapshot
+    rolling_cuda.reset_launches()
+    exp, ready = snaps[240]
+    e2, r2, stats = exact.snapshot_stats()
+    payload, r3, stats_w = exact.snapshot_wire_stats()
+    torch.cuda.synchronize()
+    stream_launches["tiled"] += rolling_cuda.launches["tiled"]
+    if not (cases.same_bits(e2, exp) and torch.equal(r2, ready)
+            and torch.equal(r3, ready)):
+        fail("phase 10: the exposures or readiness change with the side "
+             "outputs")
+    v = hold_wire_and_stats("phase 10 snapshot_wire_stats", names, exp,
+                            payload, stats_w, exact.result_spec, 1)
+    hold_wire_and_stats("phase 10 snapshot_stats", names, exp, payload,
+                        stats, exact.result_spec, 1)
+    log(f"phase 10 snapshot_wire_stats at minute 240: payload "
+        f"{payload.numel()} B ({v['quantized']} slices quantized, "
+        f"{v['widened']} widened into {exact.result_spec.spill_rows} spill "
+        f"rows, ratio {v['ratio']}); decode within RESULT_BOUNDS (max "
+        f"rel err {v['max_rel_err']:.2e}), NaN status exact; stats counts/"
+        f"min/max bitwise factor_stats_host (mean/std rel "
+        f"{v['stats_moment_rel']:.2e}); exposures bitwise with and without "
+        "the side outputs")
+    misses = reg.counter_value("serve.executables", outcome="miss") - built
+    log(f"phase 10 load: serve.executables misses after warmup {int(misses)}"
+        f"; hits {int(reg.counter_value('serve.executables', outcome='hit'))}")
+    if misses:
+        fail(f"phase 10: {int(misses)} callables built during load")
+
+    # the cohort path: every minute as one 5000-row cohort plus advance
+    cohort = StreamEngine(n, names=names, telemetry=tel, device="cuda",
+                          rolling_impl="cuda", executables=exact.executables)
+    cohort.warmup(cohorts=(n,), snapshot=False)
+    cohort_ms = []
+    idx_all = np.arange(n, dtype=np.int32)
+    for t in range(s):
+        idx = np.where(day_mask[:, t], idx_all, n).astype(np.int32)
+        rows = np.ascontiguousarray(day_bars[:, t])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cohort.ingest_cohort(rows, idx)
+        cohort.advance()
+        end.record()
+        torch.cuda.synchronize()
+        cohort_ms.append(start.elapsed_time(end))
+    full = exact.save()
+    differ = carry_leaves_equal(full, cohort.save())
+    if differ:
+        fail(f"phase 10: the cohort path's carry differs from the scan "
+             f"path's at {differ}")
+    log(f"phase 10 cohort path: {s} cohorts of {n} rows + advance; every "
+        f"carry leaf ({len(full)}) bitwise the scan path's")
+
+    # restart: save at 120, restore into a fresh engine, finish the day
+    restored = StreamEngine(n, names=names, telemetry=tel, device="cuda",
+                            rolling_impl="cuda",
+                            executables=exact.executables)
+    restored.restore(saved_120)
+    for lo in range(120, s, STREAM_MICRO):
+        restored.ingest_minutes(*micro(lo, min(lo + STREAM_MICRO, s)))
+    if carry_leaves_equal(full, restored.save()) or not cases.same_bits(
+            restored.snapshot()[0], exp):
+        fail("phase 10: the day restored at minute 120 finished differently")
+    log("phase 10 restart: saved at minute 120, restored into a fresh "
+        "engine, the finished day's carry and snapshot bitwise the "
+        "uninterrupted engine's")
+
+    # the kernel on the partial-day mask, against its plain version
+    pb, pm = prefix(60)
+    low = torch.from_numpy(pb[..., 2]).cuda().contiguous()
+    high = torch.from_numpy(pb[..., 1]).cuda().contiguous()
+    pmask = torch.from_numpy(pm).cuda()
+    args = rolling.second_moment_inputs(low, high, pmask, WINDOW)
+    valid = rolling._windowed_sum(pmask, WINDOW) > WINDOW - 0.5
+    got = rolling_cuda.second_moments(*args, WINDOW)
+    base = rolling_cuda._second_moments_rowwise(*args, WINDOW)
+    for a, b in zip(got, base):
+        if not cases.same_bits(a, b):
+            fail("phase 10: the tiled kernel differs from the rowwise one on "
+                 "the partial-day mask")
+    want = rolling_cuda.second_moments_plain(*args, WINDOW)
+    err = hold_to_plain("second_moments partial day", got, want, valid,
+                        1e-5, 1e-9)
+    if bool(valid[:, 60:].any()):
+        fail("phase 10: windows past the cursor are valid")
+    kernel_ms, plain_ms = [], []
+    for dest, fn, clock in (
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms)):
+        dest += clock(lambda: fn(*args, WINDOW))
+    bound, by, _, _ = moment_bound(n, s)
+    log(f"phase 10 second_moments [{n}, {s}] on the minute-60 prefix mask "
+        f"({int(valid.sum())} valid windows): tiled bitwise rowwise, "
+        f"max_abs_err={err:.3e} vs plain; tiled {spread(kernel_ms)} "
+        f"({bound / np.median(kernel_ms):.0%} of the {bound:.4f} ms bound by "
+        f"{by}); plain {spread(plain_ms)} ({card})")
+    del args, got, base, want, low, high, pmask, valid
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 10 times ({card}): update per {STREAM_MICRO}-minute "
+        f"micro-batch {spread(update_ms)} device events, host wall "
+        f"{spread(update_wall)}; cohort of {n} + advance {spread(cohort_ms)}"
+        "; " + "; ".join(
+            f"{label} snapshot at minute {m} {spread(snap_ms[label][m])}"
+            for label in ("exact", "fast") for m in STREAM_TIMED)
+        + f"; carry {sc.carry_nbytes(exact.carry)} B per engine; peak "
+        f"{peak / 2**30:.3f} GiB allocated (five engines)")
+    del engines, exact, fast, plain, cohort, restored, snaps, exp, e2
+    del payload, stats, stats_w
+
+    # the packed path's side outputs on phase 4's batch
+    enc = wire.encode(bars, mask)
+    buf, spec = wire.pack_arrays(enc.arrays)
+    rspec = rw.ResultWireSpec.for_names(names, days=bars.shape[0])
+    raw = pipeline.compute_packed_prepared(buf, spec, "wire", device="cuda",
+                                           rolling_impl="cuda")
+    raw_s, stats = pipeline.compute_packed_prepared(
+        buf, spec, "wire", factor_stats=True, device="cuda",
+        rolling_impl="cuda")
+    if not cases.same_bits(raw_s, raw):
+        fail("phase 10: compute_packed_prepared's result changes with "
+             "factor_stats")
+    grown = []
+    while True:
+        rolling_cuda.reset_launches()
+        payload, stats_w = pipeline.compute_packed_prepared(
+            buf, spec, "wire", result_spec=rspec, factor_stats=True,
+            device="cuda", rolling_impl="cuda")
+        torch.cuda.synchronize()
+        if dict(rolling_cuda.launches) != {"tiled": 1, "rowwise": 0}:
+            fail(f"phase 10 packed side outputs launched "
+                 f"{dict(rolling_cuda.launches)}")
+        _, probe = rw.decode_block(payload.cpu().numpy(), len(names),
+                                   bars.shape[0], bars.shape[1],
+                                   rspec.spill_rows, strict=False,
+                                   telemetry=Telemetry())
+        if not probe["overflow"] or len(grown) == 3:
+            break
+        grown.append(rspec.spill_rows)
+        rspec = rspec.grow(probe["widened"] + probe["overflow"])
+    if not torch.equal(stats_w, stats):
+        fail("phase 10: the packed stats change with the result wire")
+    v = hold_wire_and_stats("phase 10 packed", names, raw, payload, stats,
+                            rspec, bars.shape[0])
+    log(f"phase 10 compute_packed_prepared(wire, result_spec, factor_stats="
+        f"True) {tuple(raw.shape)}: one tiled launch; spill floor grown "
+        f"{grown} -> {rspec.spill_rows} rows; payload {payload.numel()} B "
+        f"against {raw.numel() * 4} B raw (ratio "
+        f"{raw.numel() * 4 / payload.numel():.3f}); {v['widened']} of "
+        f"{v['widened'] + v['quantized']} slices widened; decode within "
+        f"RESULT_BOUNDS (max rel err {v['max_rel_err']:.2e}), NaN status "
+        "exact; stats counts/min/max bitwise factor_stats_host; result "
+        "bitwise with and without the stats")
+    return {"launches": stream_launches["tiled"], "max_abs_err": err,
+            "ms": float(np.median(kernel_ms)),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
+            "bound_by": by}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke needs an NVIDIA GPU")
@@ -1567,7 +1988,6 @@ def main() -> None:
 
     # 6. the sort-based ops at full width, card against CPU
     sort_ops_full_width(bars, mask, card)
-    del bars, mask
 
     # 7. the card against the CPU on small batches at three sessions
     n_edge = card_vs_cpu(tables, names, card)
@@ -1579,6 +1999,11 @@ def main() -> None:
 
     # 9a. the evaluation ops at full width
     eval_ops_full_width(tables, card)
+
+    # 10. the intraday streaming engine at full width, and the packed
+    # path's side outputs
+    stream_line = streaming_path(bars, mask, tables, card)
+    del bars, mask
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"
@@ -1595,7 +2020,14 @@ def main() -> None:
     } for name, variant, n, err in (
         ("second_moments", "tiled", driver_launches["tiled"], max_err),
         ("second_moments_rowwise", "rowwise", other_launches["rowwise"],
-         max_err_rows))]}), flush=True)
+         max_err_rows))] + [{
+        "name": "second_moments_stream_snapshot",
+        "route": "cuda",
+        "source": src,
+        "replaces": tpu,
+        **stream_line,
+        "library_ms": None,
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,7 +15,10 @@ packed wire or raw buffer, decoded on the device); the host driver,
 :func:`compute_exposures` (day files in, the :class:`ExposureTable` cache
 out); the evaluation, :class:`Factor` and :class:`MinFreqFactor`
 (coverage, IC/rank-IC, the quantile group test, ``cal_final_exposure``);
-and the command line (``python -m replication_of_minute_frequency_factor_tpu_torch``).
+the command line (``python -m replication_of_minute_frequency_factor_tpu_torch``);
+and the intraday streaming engine (:class:`StreamEngine`: a day's carry on
+the device, folded minute by minute, with exact and fast snapshots), with
+the packed path's result wire and factor-stats side outputs.
 Entry points run on the card unless the caller passes ``device='cpu'``.
 """
 
@@ -24,4 +27,6 @@ from .data import wire  # noqa: F401
 from .factor import Factor  # noqa: F401
 from .minfreq import MinFreqFactor  # noqa: F401
 from .pipeline import (  # noqa: F401
-    ExposureTable, compute_batch, compute_exposures, compute_packed)
+    ExposureTable, compute_batch, compute_exposures,
+    compute_exposures_streamed, compute_packed)
+from .stream import StreamEngine  # noqa: F401

@@ -13,10 +13,9 @@ from typing import Optional
 class Config:
     """The JAX package's ``Config``, minus the fields the port does not
     take yet, which a caller cannot set (``Config(mesh_shape=...)`` is a
-    TypeError): ``mesh_shape`` waits for multi-device runs (ROADMAP Queue 1
-    item 10), ``profile_dir`` for the profiler capture (item 9),
-    ``backend`` for the numpy/polars backends (item 11), and
-    ``finalize_impl`` for streaming (item 7). The XLA knobs
+    TypeError): ``mesh_shape`` waits for multi-GPU runs (ROADMAP Queue 1
+    item 6), ``profile_dir`` for the profiler capture (item 4), and
+    ``backend`` for the numpy/polars backends (item 7). The XLA knobs
     (``compile_telemetry``, ``compilation_cache_dir``, ``donate_buffers``)
     have no torch counterpart."""
 
@@ -44,6 +43,12 @@ class Config:
     #: version only for tensors on the CPU; 'torch' — the plain torch
     #: version, everywhere
     rolling_impl: str = "cuda"
+    #: streaming snapshot finalize: 'exact' — the bitwise batch-prefix
+    #: finalize (O(day) a snapshot); 'fast' — the foldable kernels
+    #: materialize from the carried statistics (stream/fastpath.py),
+    #: exact_fold bitwise, stat_fold within STAT_FOLD_BOUNDS, batch_only
+    #: the same bits as 'exact'
+    finalize_impl: str = "exact"
     #: index-pool membership parquet enabling cal_final_exposure's
     #: stock_pool= (data/io.py read_stock_pool); None keeps the
     #: reference's only-'full' behaviour (quirk Q9)
@@ -65,6 +70,7 @@ class Config:
             "MFF_DAILY_PV_PATH": "daily_pv_path",
             "MFF_FACTOR_DIR": "factor_dir",
             "MFF_ROLLING_IMPL": "rolling_impl",
+            "MFF_FINALIZE_IMPL": "finalize_impl",
             "MFF_STOCK_POOL_PATH": "stock_pool_path",
         }
         for env, field in mapping.items():

@@ -20,7 +20,7 @@ from ..ops.ranking import topk_sum
 from ..ops.segments import (
     _sorted_segments, pdf_quantile_rank, segment_stats_by_value)
 from .context import DayContext
-from .registry import register
+from .registry import finalize_class, register, stream_requirement
 
 
 def _seg_moments(ctx: DayContext):
@@ -105,3 +105,23 @@ def doc_vol50_ratio(ctx: DayContext):
     """Quirk Q3 (ref :1195-1197): named top-50 but uses top_k(5) — identical
     to doc_vol5_ratio. ``replicate_quirks=False`` uses 50."""
     return _topk_share(ctx, 5 if ctx.replicate_quirks else 50)
+
+
+# --- streaming readiness: the whole family is anchored on the
+# END-OF-DAY close, so every bar retroactively reprices history — these
+# kernels are the mathematically non-foldable class whose partial values
+# come from the carried bar buffer, never from O(1) accumulators
+# (docs/streaming.md); the group itself exists from the first bar --------
+for _n in ("doc_kurt", "doc_skew", "doc_std", "doc_pdf60", "doc_pdf70",
+           "doc_pdf80", "doc_pdf90", "doc_pdf95", "doc_vol10_ratio",
+           "doc_vol5_ratio", "doc_vol50_ratio"):
+    stream_requirement(_n, "bars")
+
+# --- finalize exactness classes: end-of-day anchored
+# (eod_ret reprices EVERY past bar when a new close arrives) plus the
+# whole-frame rank / top-k selections — the canonical non-foldable
+# class; every kernel here rides the batch-prefix residual ----------------
+for _n in ("doc_kurt", "doc_skew", "doc_std", "doc_pdf60", "doc_pdf70",
+           "doc_pdf80", "doc_pdf90", "doc_pdf95", "doc_vol10_ratio",
+           "doc_vol5_ratio", "doc_vol50_ratio"):
+    finalize_class(_n, "batch_only")

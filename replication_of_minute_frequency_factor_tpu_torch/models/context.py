@@ -4,8 +4,7 @@ The reference recomputes returns/shares/rolling stats inside every kernel
 (one polars pass per factor). Here every intermediate is computed at most
 once per day tensor and shared by all factors that need it. The port of
 the JAX package's ``models/context.py``; sharded-axis collectives
-(``xs_axis_name``) and streaming injection (``inject``) come with later
-slices and raise here.
+(``xs_axis_name``) wait for multi-GPU runs and raise here.
 
 Field layout follows :mod:`..data.minute` (open, high, low, close, volume).
 """
@@ -41,9 +40,9 @@ class DayContext:
     def __init__(self, bars, mask, replicate_quirks: bool = True,
                  rolling_impl: str = None, xs_axis_name: str = None,
                  inject: dict = None, session=None):
-        if xs_axis_name is not None or inject is not None:
+        if xs_axis_name is not None:
             raise NotImplementedError(
-                "DayContext: xs_axis_name and inject are not ported yet")
+                "DayContext: xs_axis_name is not ported yet")
         self.bars = bars
         self.mask = mask
         #: the market session spec: slot count, grid times and the
@@ -57,7 +56,15 @@ class DayContext:
                 f"{self.session.name!r} has {self.session.n_slots}")
         self.replicate_quirks = replicate_quirks
         self.rolling_impl = rolling_impl  # None -> Config.rolling_impl
-        self._memo = {}
+        #: ``inject`` seeds the memo with intermediates computed elsewhere:
+        #: the streaming finalize's carry leaves (stream/carry.py). An
+        #: injected value must be bitwise what the batch formulation
+        #: computes from (bars, mask), which holds for the reorder-exact
+        #: class only (integer counts, pure selections; ops/incremental.py).
+        #: The carry's ``n_bars`` is int32 where ``mask.sum`` gives int64;
+        #: every consumer reads it through ``has_bars`` (``> 0``), which
+        #: is the same for both.
+        self._memo = dict(inject) if inject else {}
         #: HHMMSSmmm per slot (int64, on the bars' device), broadcastable
         #: against [..., T, S]
         self.times = torch.tensor(self.session.grid_times,

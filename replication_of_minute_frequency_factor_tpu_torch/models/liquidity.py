@@ -10,7 +10,7 @@ import torch
 
 from ..ops import masked_first, masked_sum
 from .context import DayContext
-from .registry import register
+from .registry import finalize_class, register, stream_requirement
 
 _NAN = float("nan")
 
@@ -65,3 +65,22 @@ def liq_lastCallR(ctx: DayContext):
 def liq_openvol(ctx: DayContext):
     """First bar's volume. Ref :823-831."""
     return masked_first(ctx.volume, ctx.mask)
+
+
+# --- streaming readiness: the two auction-window kernels wait
+# for their window; everything else exists with the first bar ------------
+stream_requirement("liq_amihud_1min", "bars")
+stream_requirement("liq_closeprevol", "pre_auction")
+stream_requirement("liq_closevol", "auction")
+stream_requirement("liq_firstCallR", "bars")
+stream_requirement("liq_lastCallR", "bars")
+stream_requirement("liq_openvol", "bars")
+
+# --- finalize exactness classes: liq_openvol is a pure
+# selection (first present bar's volume — bitwise from the carried
+# leaf); the rest are windowed f32 sums / the streamed amihud term sum,
+# folded per bar and bounded per factor ----------------------------------
+finalize_class("liq_openvol", "exact_fold")
+for _n in ("liq_amihud_1min", "liq_closeprevol", "liq_closevol",
+           "liq_firstCallR", "liq_lastCallR"):
+    finalize_class(_n, "stat_fold")

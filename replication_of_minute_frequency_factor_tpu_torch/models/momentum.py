@@ -21,7 +21,7 @@ from ..ops import (
     topk_threshold,
 )
 from .context import DayContext
-from .registry import register
+from .registry import finalize_class, register, stream_requirement
 
 _NAN = float("nan")
 
@@ -193,3 +193,36 @@ def mmt_bottom20VolumeRet(ctx: DayContext):
     """Quirk Q1 (ref :471): despite the name, uses bottom_k(50) — identical
     to mmt_bottom50VolumeRet. ``replicate_quirks=False`` uses 20."""
     return _volume_ret(ctx, 50 if ctx.replicate_quirks else 20, False)
+
+
+# --- streaming readiness ----------
+# sentinel-ratio kernels need a bar at one of their two sentinel slots;
+# the rolling family needs a complete 50-trade-minute window (50 present
+# bars is the necessary bound — ops/rolling.py validity); the
+# volume-conditioned compounds exist from the first bar.
+stream_requirement("mmt_pm", "sent_pm")
+stream_requirement("mmt_last30", "sent_last30")
+stream_requirement("mmt_am", "sent_am")
+stream_requirement("mmt_between", "sent_between")
+stream_requirement("mmt_paratio", "bars")
+for _n in ("mmt_ols_qrs", "mmt_ols_corr_square_mean", "mmt_ols_corr_mean",
+           "mmt_ols_beta_mean", "mmt_ols_beta_zscore_last"):
+    stream_requirement(_n, "bars", 50)
+for _n in ("mmt_top50VolumeRet", "mmt_bottom50VolumeRet",
+           "mmt_top20VolumeRet", "mmt_bottom20VolumeRet"):
+    stream_requirement(_n, "bars")
+
+# --- finalize exactness classes -----
+# the sentinel ratios and mmt_paratio are pure selections over their
+# windows (first open / last close) — the carried selection leaves
+# reproduce them BITWISE; the rolling-50 family re-prices whole trailing
+# windows per bar and the volume-conditioned compounds are top-k
+# rank-dependent — both stay on the batch-prefix residual.
+for _n in ("mmt_pm", "mmt_last30", "mmt_am", "mmt_between",
+           "mmt_paratio"):
+    finalize_class(_n, "exact_fold")
+for _n in ("mmt_ols_qrs", "mmt_ols_corr_square_mean", "mmt_ols_corr_mean",
+           "mmt_ols_beta_mean", "mmt_ols_beta_zscore_last",
+           "mmt_top50VolumeRet", "mmt_bottom50VolumeRet",
+           "mmt_top20VolumeRet", "mmt_bottom20VolumeRet"):
+    finalize_class(_n, "batch_only")

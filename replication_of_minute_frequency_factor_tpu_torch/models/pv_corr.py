@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from ..ops import masked_corr, pct_change_valid, shift_valid
 from .context import DayContext
-from .registry import register
+from .registry import finalize_class, register, stream_requirement
 
 
 @register("corr_prv")
@@ -60,3 +60,21 @@ def corr_pvr(ctx: DayContext):
     base = ctx.mask & (ctx.volume != 0)
     pv, ok = pct_change_valid(ctx.volume, base)
     return masked_corr(ctx.close, pv, ok)
+
+
+# --- streaming readiness: Pearson needs >1 pairwise-valid
+# lane; the shift/pct variants lose their first present bar, so they
+# need a third -----------------------------------------------------------
+stream_requirement("corr_pv", "bars", 2)
+for _n in ("corr_prv", "corr_prvr", "corr_pvd", "corr_pvl", "corr_pvr"):
+    stream_requirement(_n, "bars", 3)
+
+# --- finalize exactness classes: Pearson over
+# first-valid-anchored series (the constant_window pin's production
+# side) — the anchor subtracts a day-level selection from every bar,
+# and the raw-moment cancellation a streamed co-moment fold would rely
+# on is exactly the f32 noise the anchor exists to kill; the family
+# stays on the batch residual deliberately --------------------------------
+for _n in ("corr_pv", "corr_prv", "corr_prvr", "corr_pvd", "corr_pvl",
+           "corr_pvr"):
+    finalize_class(_n, "batch_only")

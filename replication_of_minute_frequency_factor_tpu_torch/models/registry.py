@@ -15,6 +15,33 @@ FACTORS: Dict[str, Callable] = {}
 #: :func:`factor_names` (keeps the canonical set closed for parity suites)
 ALIASES: Dict[str, Callable] = {}
 
+#: kernel name -> (window counter, minimum count): the streaming readiness
+#: contract. While ``inc[counter] < minimum`` the kernel's defining group
+#: is empty, so its partial-day exposure is NaN; a ready kernel may still
+#: be NaN through degenerate data. Counters are the integer accumulators
+#: of ``ops/incremental.py``, monotone over the day, so readiness is
+#: monotone too. Every family module declares its kernels' requirements
+#: next to the kernels.
+STREAM_REQUIREMENTS: Dict[str, Tuple[str, int]] = {}
+
+#: the three finalize exactness classes:
+#:
+#: ``exact_fold``  — the fast-finalize formula reads pure selections /
+#:                   integer counters from the carry and is bitwise the
+#:                   batch formulation;
+#: ``stat_fold``   — the formula reads f32 statistics folded per bar:
+#:                   mathematically the same, bounded per factor by
+#:                   ``stream.fastpath.STAT_FOLD_BOUNDS``;
+#: ``batch_only``  — anchored / rank-dependent / order-sensitive: the fast
+#:                   path runs these through the same batch-prefix
+#:                   finalize as ``finalize_impl='exact'``.
+FINALIZE_CLASS_VALUES = ("exact_fold", "stat_fold", "batch_only")
+
+#: kernel name -> finalize class; every registered kernel (built-in and
+#: alias alike) must carry one (:func:`finalize_classes` fails loudly on
+#: gaps, like :func:`stream_requirements`)
+FINALIZE_CLASSES: Dict[str, str] = {}
+
 
 def register(name: str):
     def deco(fn):
@@ -23,16 +50,61 @@ def register(name: str):
     return deco
 
 
+def stream_requirement(name: str, counter: str, minimum: int = 1) -> None:
+    """Declare the readiness requirement of a registered kernel (see
+    :data:`STREAM_REQUIREMENTS`). ``counter`` must name a window counter
+    of ``ops.incremental.WINDOW_COUNTERS``."""
+    from ..ops.incremental import WINDOW_COUNTERS
+    if counter not in WINDOW_COUNTERS:
+        raise ValueError(f"unknown window counter {counter!r} for "
+                         f"kernel {name!r}")
+    STREAM_REQUIREMENTS[name] = (counter, int(minimum))
+
+
+def stream_requirements() -> Dict[str, Tuple[str, int]]:
+    """The full readiness map; raises if a canonical kernel declared
+    none."""
+    missing = [n for n in FACTORS if n not in STREAM_REQUIREMENTS]
+    if missing:
+        raise RuntimeError(
+            f"kernels with no stream readiness requirement: {missing}")
+    return dict(STREAM_REQUIREMENTS)
+
+
+def finalize_class(name: str, cls: str) -> None:
+    """Declare the finalize exactness class of a registered kernel (see
+    :data:`FINALIZE_CLASSES`), next to the kernel."""
+    if cls not in FINALIZE_CLASS_VALUES:
+        raise ValueError(f"unknown finalize class {cls!r} for kernel "
+                         f"{name!r} (valid: {FINALIZE_CLASS_VALUES})")
+    FINALIZE_CLASSES[name] = cls
+
+
+def finalize_classes() -> Dict[str, str]:
+    """The finalize-class map over the canonical kernels and every
+    alias; raises if one declared none."""
+    missing = [n for n in FACTORS if n not in FINALIZE_CLASSES]
+    missing += [n for n in ALIASES if n not in FINALIZE_CLASSES]
+    if missing:
+        raise RuntimeError(
+            f"kernels with no finalize class: {missing}")
+    return {n: FINALIZE_CLASSES[n]
+            for n in (*FACTORS, *(n for n in ALIASES
+                                  if n not in FACTORS))}
+
+
 def register_alias(name: str, kernel) -> None:
     """Expose a kernel (an existing name or an ad-hoc ``fn(ctx)``) under a
     user-chosen factor name (MinFreqFactor's ``calculate_method=``).
 
-    The JAX package also files the alias under a finalize class for its
-    streaming fast path; the port keeps no finalize classes until
-    streaming is ported (ROADMAP Queue 1 item 7)."""
+    An alias is ``batch_only`` unless it already has a class: the fast
+    formulas are keyed by the canonical name, so an alias of a foldable
+    kernel rides the batch residual, and an ad-hoc ``fn(ctx)`` has no
+    incremental form."""
     if isinstance(kernel, str):
         kernel = FACTORS[kernel]
     ALIASES[name] = kernel
+    FINALIZE_CLASSES.setdefault(name, "batch_only")
 
 
 def resolve(name: str) -> Callable:
@@ -53,6 +125,7 @@ def factor_names() -> Tuple[str, ...]:
 def compute_factors(bars, mask, names: Optional[Sequence[str]] = None,
                     replicate_quirks: bool = True,
                     rolling_impl: Optional[str] = None,
+                    inject: Optional[dict] = None,
                     session=None):
     """Compute the named factors (default: all 58) over a day tensor.
 
@@ -60,11 +133,14 @@ def compute_factors(bars, mask, names: Optional[Sequence[str]] = None,
     device; returns ``{name: [..., T]}`` on that device.
     ``rolling_impl`` picks the mmt_ols_* second-moment backend
     (``ops.rolling.ROLLING_IMPLS``; None reads ``Config.rolling_impl``).
-    ``session`` (a ``markets.SessionSpec`` or registry name; None is
-    ``cn_ashare_240``) sets the day shape and the sentinel boundaries.
+    ``inject`` seeds the DayContext memo with carry-native intermediates
+    (the streaming finalize; see DayContext). ``session`` (a
+    ``markets.SessionSpec`` or registry name; None is ``cn_ashare_240``)
+    sets the day shape and the sentinel boundaries.
     """
     if names is None:
         names = tuple(FACTORS)
     ctx = DayContext(bars, mask, replicate_quirks=replicate_quirks,
-                     rolling_impl=rolling_impl, session=session)
+                     rolling_impl=rolling_impl, inject=inject,
+                     session=session)
     return {n: resolve(n)(ctx) for n in names}

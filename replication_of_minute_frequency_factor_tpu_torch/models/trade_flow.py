@@ -13,7 +13,7 @@ import torch
 
 from ..ops import masked_mean, masked_sum
 from .context import DayContext
-from .registry import register
+from .registry import finalize_class, register, stream_requirement
 
 _NAN = float("nan")
 
@@ -103,3 +103,28 @@ def trade_topNeg20retRatio(ctx: DayContext):
 def trade_topPos20retRatio(ctx: DayContext):
     """Positive-return variant over bars <= 09:50. Ref :1381-1406."""
     return _ret_over_share(ctx, ctx.session.T_TOP20_END, 1)
+
+
+# --- streaming readiness: each window kernel waits for its
+# own window's first bar; the day-share ratios exist with the day -------
+stream_requirement("trade_bottom20retRatio", "tail20")
+stream_requirement("trade_bottom50retRatio", "tail50")
+stream_requirement("trade_headRatio", "bars")
+stream_requirement("trade_tailRatio", "bars")
+stream_requirement("trade_top20retRatio", "top20")
+stream_requirement("trade_top50retRatio", "top50")
+stream_requirement("trade_topNeg20retRatio", "top20")
+stream_requirement("trade_topPos20retRatio", "top20")
+
+# --- finalize exactness classes: the head/tail volume
+# shares and the bottom-window ret·vol sums fold per bar (windowed f32
+# sums); the top* mean(ret/share) family divides per-bar returns by a
+# per-bar share whose zero-volume lanes must reproduce the reference's
+# inf/NaN propagation exactly — that division stays on the batch
+# residual rather than risking a folded inf/NaN mismatch -----------------
+for _n in ("trade_bottom20retRatio", "trade_bottom50retRatio",
+           "trade_headRatio", "trade_tailRatio"):
+    finalize_class(_n, "stat_fold")
+for _n in ("trade_top20retRatio", "trade_top50retRatio",
+           "trade_topNeg20retRatio", "trade_topPos20retRatio"):
+    finalize_class(_n, "batch_only")

@@ -11,7 +11,7 @@ import torch
 
 from ..ops import masked_std
 from .context import DayContext
-from .registry import register
+from .registry import finalize_class, register, stream_requirement
 
 _NAN = float("nan")
 
@@ -70,3 +70,22 @@ def vol_downVol(ctx: DayContext):
 def vol_downRatio(ctx: DayContext):
     """Downside volatility / total volatility. Ref :617-642."""
     return _signed_vol(ctx, False) / masked_std(ctx.ret_co, ctx.mask)
+
+
+# --- streaming readiness ----------------------------------------
+# ddof=1 reductions are NaN below 2 bars; the signed variants clamp the
+# degenerate case to 0 and only need the group to exist.
+for _n in ("vol_volume1min", "vol_range1min", "vol_return1min",
+           "vol_upRatio", "vol_downRatio"):
+    stream_requirement(_n, "bars", 2)
+for _n in ("vol_upVol", "vol_downVol"):
+    stream_requirement(_n, "bars")
+
+# --- finalize exactness classes: every std here is a
+# second central moment of a per-bar series (volume, high/low,
+# close/open-1, the signed-return subsets) — all fold per bar as
+# streamed Welford statistics (ops/incremental.py), f32-bounded per
+# factor by stream.fastpath.STAT_FOLD_BOUNDS ----------------------------
+for _n in ("vol_volume1min", "vol_range1min", "vol_return1min",
+           "vol_upVol", "vol_upRatio", "vol_downVol", "vol_downRatio"):
+    finalize_class(_n, "stat_fold")

@@ -36,3 +36,10 @@ from .segments import (  # noqa: F401
     pdf_quantile_rank,
     segment_stats_by_value,
 )
+from .incremental import (  # noqa: F401
+    WINDOW_COUNTERS,
+    init_inc,
+    update_inc,
+    update_inc_at,
+    window_contains,
+)

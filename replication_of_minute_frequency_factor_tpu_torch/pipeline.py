@@ -14,8 +14,12 @@ grids, encodes and packs batch i+1 into a pinned host buffer while the
 card computes batch i; the copy runs on a stream of its own, the result
 comes back to a pinned buffer without blocking), isolates failed days,
 and keeps the columnar :class:`ExposureTable` cache with its failure
-ledger. The result wire and the factor-stats side output come with later
-slices.
+ledger. The packed path takes the JAX package's two side outputs: the
+result wire (:mod:`.data.result_wire`, the block quantized on the device)
+and the factor-stats sketch (:mod:`.telemetry.factorplane`).
+
+:func:`compute_exposures_streamed` folds one day through the streaming
+engine (:mod:`.stream`).
 """
 
 from __future__ import annotations
@@ -32,12 +36,14 @@ import torch
 
 from .config import Config, get_config
 from .data import io as dio
+from .data import result_wire as _result_wire
 from .data import wire
 from .data.minute import grid_day
 from .markets import get_session
 from .models import compute_factors, factor_names
 from .telemetry import Telemetry, get_telemetry
 from .telemetry import attribution as _attribution
+from .telemetry.factorplane import factor_stats_block as _factor_stats_block
 from .utils.logging import FailureReport, get_logger
 from .utils.tracing import Timer, trace_annotation
 
@@ -103,7 +109,7 @@ def compute_packed_prepared(buf, spec, kind: str,
                             replicate_quirks: Optional[bool] = None,
                             rolling_impl: Optional[str] = None,
                             result_spec=None, factor_stats=False,
-                            session=None, device=None) -> torch.Tensor:
+                            session=None, device=None):
     """Device half of the packed path: one copy of an already-packed host
     buffer (``wire.pack_arrays``) to the device, unpack there, decode when
     ``kind='wire'`` (``kind='raw'`` ships ``(bars f32, mask uint8)``), and
@@ -112,13 +118,16 @@ def compute_packed_prepared(buf, spec, kind: str,
     ``buf`` is a numpy buffer, or a 1-D uint8 tensor: a pinned host one is
     copied with ``non_blocking=True`` on the current stream, one already
     on the device is used as it is. ``device`` defaults to ``cuda`` and
-    raises when no card is present. ``result_spec`` and ``factor_stats``
-    (the result wire and the factor-stats side output) are not ported yet
-    and raise if given.
+    raises when no card is present.
+
+    ``result_spec`` (a :class:`.data.result_wire.ResultWireSpec`) makes
+    the result the packed quantized payload (``[L] uint8``) in place of
+    the raw f32 stack. ``factor_stats`` (True, or the count of logical
+    tickers, so pad lanes past it do not read as missing) adds the
+    ``[F, 9]`` sketch of :func:`.telemetry.factorplane.factor_stats_block`
+    of the raw stack, taken before the encode: the return is then
+    ``(result, stats)``. Neither changes the exposures' bits.
     """
-    if result_spec is not None or factor_stats:
-        raise NotImplementedError(
-            "result_spec and factor_stats are not ported yet")
     if kind not in ("wire", "raw"):
         raise ValueError(f"kind must be 'wire' or 'raw', not {kind!r}")
     dev = resolve_device(device)
@@ -135,15 +144,31 @@ def compute_packed_prepared(buf, spec, kind: str,
     else:
         bars, mask = arrs  # the mask ships as uint8
         mask = mask.to(torch.bool)
-    return _stacked(bars, mask, names, session, rolling_impl,
-                    replicate_quirks)
+    stacked = _stacked(bars, mask, names, session, rolling_impl,
+                       replicate_quirks)
+    return _side_outputs(stacked, result_spec, factor_stats)
+
+
+def _side_outputs(stacked, result_spec, factor_stats):
+    """The stacked block, or its result-wire payload, with the stats
+    sketch of the raw block when asked (see
+    :func:`compute_packed_prepared`)."""
+    stats = None
+    if factor_stats:
+        stats = _factor_stats_block(
+            stacked if factor_stats is True
+            else stacked[..., :int(factor_stats)])
+    if result_spec is not None:
+        stacked = _result_wire.encode_block(stacked, result_spec)
+    if factor_stats:
+        return stacked, stats
+    return stacked
 
 
 def compute_packed(arrays, kind: str, names: Optional[Sequence[str]] = None,
                    replicate_quirks: Optional[bool] = None,
                    rolling_impl: Optional[str] = None, result_spec=None,
-                   factor_stats=False, session=None,
-                   device=None) -> torch.Tensor:
+                   factor_stats=False, session=None, device=None):
     """One-call packed path: pack the host arrays (``WireBatch.arrays``
     for ``kind='wire'``, ``(bars, mask.astype(uint8))`` for ``'raw'``) into
     one buffer, then :func:`compute_packed_prepared`."""
@@ -990,3 +1015,35 @@ def compute_exposures(
     if fatal is not None:
         raise fatal
     return result
+
+
+def compute_exposures_streamed(bars, mask, names=None, micro_batch=16,
+                               replicate_quirks=True, rolling_impl=None,
+                               engine=None, session=None, device=None):
+    """One day of minute bars folded through the streaming engine: host
+    ``bars [T, S, 5]`` / ``mask [T, S]`` in, ``{name: np [T]}`` out, with
+    one fetch. ``micro_batch`` minutes advance per ingest call; an
+    injected ``engine`` (reset first) reuses its warm callables and must
+    match the universe. At the last minute the result is bitwise
+    :func:`compute_batch` on the same day. ``device`` defaults to
+    ``cuda`` and raises when no card is present."""
+    from .stream.engine import StreamEngine
+
+    t_total = mask.shape[-1]
+    if engine is None:
+        engine = StreamEngine(mask.shape[0], names=names,
+                              replicate_quirks=replicate_quirks,
+                              rolling_impl=rolling_impl, session=session,
+                              device=device)
+    else:
+        engine.reset()
+    s = 0
+    while s < t_total:
+        e = min(s + micro_batch, t_total)
+        engine.ingest_minutes(
+            np.ascontiguousarray(np.swapaxes(bars[:, s:e], 0, 1)),
+            np.ascontiguousarray(mask[:, s:e].T))
+        s = e
+    exposures, _ready = engine.snapshot()
+    host = exposures.cpu().numpy()  # the one fetch
+    return {n: host[j] for j, n in enumerate(engine.names)}

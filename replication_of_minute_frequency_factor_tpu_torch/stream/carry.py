@@ -1,0 +1,221 @@
+"""The incremental kernel contract: ``init_carry / update / finalize``.
+
+The port of the JAX package's ``stream/carry.py``. A carry is the whole
+streaming state of one trading day over a ``T``-ticker universe, held on
+one device and advanced as a fold over minutes:
+
+``bars [T, S, 5]``
+    the day buffer, filled one minute-column per update (absent lanes
+    stay 0; kernels never read a masked lane's value);
+``mask [T, S]``
+    which (ticker, slot) lanes hold a bar;
+``t``
+    the minute cursor, the next slot an update writes: a host int here
+    (the JAX carry holds an i32 device scalar), so an update reads its
+    slot's window membership without a device read;
+``inc {...}``
+    the accumulators of :mod:`..ops.incremental`.
+
+The buffer is part of the carry because 30 of the 58 kernels are
+anchored on end-of-day state (``eod_ret`` reprices every past bar when a
+bar arrives, the ``doc_pdf*`` walk re-ranks the frame), so ``finalize``
+re-reads the prefix: it runs the batch kernels over the masked partial
+buffer with the reorder-exact accumulators injected, and at the last
+minute its result is bitwise the full day's.
+
+Updates write the day buffer's minute column in place (the JAX
+package's ``dynamic_update_slice`` into a donated buffer); every ``inc``
+leaf is a new tensor. The flat ``{path: np.ndarray}`` snapshot of
+:func:`carry_to_host` is the JAX package's format: a snapshot either
+package saves restores into the other.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.minute import FIELDS
+from ..markets import get_session
+from ..models.registry import (
+    compute_factors,
+    factor_names,
+    stream_requirements,
+)
+from ..ops import incremental as inc_ops
+
+#: carry keys, in serialization order
+CARRY_KEYS = ("bars", "mask", "t", "inc")
+
+
+def init_carry(n_tickers: int, session=None) -> Dict[str, object]:
+    """Empty-day carry as host numpy (the engine copies it to its device
+    whole). ``session`` sizes the day buffer (None = the 240-slot
+    cn_ashare day)."""
+    n_slots = get_session(session).n_slots
+    return {
+        "bars": np.zeros((n_tickers, n_slots, len(FIELDS)), np.float32),
+        "mask": np.zeros((n_tickers, n_slots), bool),
+        "t": np.int32(0),
+        "inc": inc_ops.init_inc(n_tickers),
+    }
+
+
+def update_minute(carry, values, present, session=None):
+    """One fold step: write minute ``t``'s bars and advance the cursor.
+
+    ``values [T, 5]`` are the bar fields for every ticker (garbage where
+    absent), ``present [T]`` marks which tickers traded. Absent lanes
+    write 0 into the buffer."""
+    t = int(carry["t"])
+    carry["bars"][:, t] = torch.where(present[:, None], values, 0.0)
+    carry["mask"][:, t] = present
+    return {"bars": carry["bars"], "mask": carry["mask"], "t": t + 1,
+            "inc": inc_ops.update_inc(carry["inc"], t, values, present,
+                                      session=session)}
+
+
+def update_tickers(carry, rows, idx, session=None):
+    """Cohort fold step: bars for ``K`` tickers at the current minute.
+
+    ``rows [K, 5]`` land at ``(idx[k], t)``; the cursor does not move
+    (call :func:`advance` at the minute boundary). Padding rows use
+    ``idx == n_tickers`` and are dropped. Streaming the same minutes
+    through cohorts or through :func:`update_minute` gives a bitwise
+    identical carry."""
+    t = int(carry["t"])
+    idx = idx.to(torch.int64)
+    n = carry["mask"].shape[0]
+    # the minute's column with a discard row for the padding indices,
+    # where the JAX package's mode="drop" scatter drops them
+    col = torch.cat([carry["bars"][:, t],
+                     rows.new_zeros((1, rows.shape[1]))])
+    col[idx] = rows
+    carry["bars"][:, t] = col[:n]
+    mcol = torch.cat([carry["mask"][:, t],
+                      carry["mask"].new_zeros((1,))])
+    mcol[idx] = True
+    carry["mask"][:, t] = mcol[:n]
+    return {"bars": carry["bars"], "mask": carry["mask"], "t": t,
+            "inc": inc_ops.update_inc_at(carry["inc"], t, rows, idx,
+                                         session=session)}
+
+
+def advance(carry, minutes: int = 1):
+    """Move the minute cursor (a minute with no cohort delivery is a
+    legal, fully absent minute)."""
+    return {**carry, "t": int(carry["t"]) + int(minutes)}
+
+
+def readiness(carry_inc, names: Sequence[str]):
+    """``[F, T]`` bool: which kernels' defining groups are non-empty at
+    this point of the day (registry.STREAM_REQUIREMENTS). Monotone in the
+    fold and sound: a False lane's exposure is NaN."""
+    reqs = stream_requirements()
+    rows = []
+    for n in names:
+        counter, minimum = reqs[n]
+        rows.append(carry_inc[counter] >= minimum)
+    return torch.stack(rows)
+
+
+def finalize(carry, names: Optional[Tuple[str, ...]] = None,
+             replicate_quirks: bool = True,
+             rolling_impl: Optional[str] = None,
+             session=None) -> Dict[str, torch.Tensor]:
+    """Exposures of the partial day: ``{name: [T]}``, the batch kernels
+    over the carried ``(bars, mask)`` prefix with the reorder-exact
+    accumulators (``n_bars``, ``last_close``) injected."""
+    if names is None:
+        names = factor_names()
+    inject = {"n_bars": carry["inc"]["bars"],
+              "last_close": carry["inc"]["last_close"]}
+    return compute_factors(carry["bars"], carry["mask"], names=names,
+                           replicate_quirks=replicate_quirks,
+                           rolling_impl=rolling_impl, inject=inject,
+                           session=session)
+
+
+def finalize_with_readiness(carry, names: Tuple[str, ...],
+                            replicate_quirks: bool = True,
+                            rolling_impl: Optional[str] = None,
+                            session=None, finalize_impl: str = "exact"):
+    """The engine's snapshot: stacked exposures ``[F, T]`` and the
+    readiness plane ``[F, T]``.
+
+    ``finalize_impl='exact'`` is the bitwise batch-prefix finalize above
+    (O(day) a snapshot); ``'fast'`` materializes the foldable kernels from
+    the carried statistics (``stream/fastpath.py``, O(F·T)) and runs only
+    the ``batch_only`` residual over the prefix. Same layout and factor
+    order either way."""
+    if finalize_impl not in ("exact", "fast"):
+        raise ValueError(f"unknown finalize_impl {finalize_impl!r} "
+                         "(valid: 'exact', 'fast')")
+    if finalize_impl == "exact":
+        out = finalize(carry, names, replicate_quirks, rolling_impl,
+                       session=session)
+        exposures = torch.stack([out[n] for n in names])
+        return exposures, readiness(carry["inc"], names)
+    from . import fastpath
+
+    fold, residual = fastpath.partition_names(tuple(names))
+    vals = {}
+    if fold:
+        fast = fastpath.stream_finalize_fast(carry["inc"], fold)
+        vals.update({n: fast[i] for i, n in enumerate(fold)})
+    if residual:
+        vals.update(finalize(carry, residual, replicate_quirks,
+                             rolling_impl, session=session))
+    exposures = torch.stack([vals[n] for n in names])
+    return exposures, readiness(carry["inc"], names)
+
+
+# --------------------------------------------------------------------------
+# serialization (mid-day restart: save -> restore -> identical tail)
+# --------------------------------------------------------------------------
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().to("cpu", copy=True).numpy()
+
+
+def carry_to_host(carry) -> Dict[str, np.ndarray]:
+    """Flat ``{path: np.ndarray}`` copy of the carry (``inc/<leaf>``,
+    ``bars``, ``mask``, ``t`` as a 0-d int32 array), the JAX package's
+    format. Restoring it with :func:`carry_from_host` and continuing the
+    fold is bitwise never having stopped."""
+    flat = {f"inc/{k}": _host(v) for k, v in carry["inc"].items()}
+    flat["bars"] = _host(carry["bars"])
+    flat["mask"] = _host(carry["mask"])
+    flat["t"] = np.asarray(carry["t"], np.int32)
+    return flat
+
+
+def carry_from_host(snapshot: Dict[str, object]) -> Dict[str, object]:
+    """Rebuild the carry's structure from a :func:`carry_to_host`
+    snapshot (host side; the engine copies it to its device)."""
+    inc = {k.split("/", 1)[1]: np.asarray(v) for k, v in snapshot.items()
+           if k.startswith("inc/")}
+    return {"bars": np.asarray(snapshot["bars"]),
+            "mask": np.asarray(snapshot["mask"]),
+            "t": np.int32(snapshot["t"]), "inc": inc}
+
+
+def carry_to_device(host: Dict[str, object], device) -> Dict[str, object]:
+    """A host carry (:func:`init_carry`, :func:`carry_from_host`) copied
+    onto ``device``; the copies never share memory with ``host``."""
+    def put(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    return {"bars": put(host["bars"]), "mask": put(host["mask"]),
+            "t": int(host["t"]),
+            "inc": {k: put(v) for k, v in host["inc"].items()}}
+
+
+def carry_nbytes(carry) -> int:
+    """Device bytes held by the carry (the ``stream.carry_bytes``
+    gauge)."""
+    leaves = [carry["bars"], carry["mask"], *carry["inc"].values()]
+    return sum(x.numel() * x.element_size() for x in leaves) + 4

@@ -316,3 +316,96 @@ def test_injected_launch_failure_on_the_card_loses_no_day(tmp_path,
     assert tel.registry.counter_value("pipeline.retries",
                                       stage="launch") == 1
     assert calls[0] == 3
+
+
+@pytest.mark.cuda
+def test_stream_day_on_the_card_matches_the_cpu_port():
+    """A 64-ticker day streamed on the card: the snapshot is bitwise
+    compute_batch on the card (one tiled launch), and within
+    tests/test_parity.py's tolerances of the same day streamed on the CPU
+    (chip_smoke's comparator)."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        compute_exposures_streamed)
+    from torch_cases import stream_day
+
+    smoke = _smoke()
+    bars, mask = stream_day(41, 64)
+    names = factor_names()
+    before = dict(rolling_cuda.launches)
+    got = compute_exposures_streamed(bars, mask, rolling_impl="cuda")
+    assert _launched(before) == {"tiled": 1, "rowwise": 0}
+    want = compute_exposures_streamed(bars, mask, device="cpu")
+    a = torch.from_numpy(np.stack([got[n] for n in names]))
+    b = torch.from_numpy(np.stack([want[n] for n in names]))
+    batch = compute_batch(bars, mask, rolling_impl="cuda")
+    assert same_bits(a, batch.cpu())
+    clean = np.where(mask[..., None], bars, 0.0).astype(np.float32)
+    ctx = DayContext(torch.from_numpy(clean), torch.from_numpy(mask),
+                     rolling_impl="torch")
+    kurt = {n: b[names.index(n)].double().numpy()
+            for n in ("shape_kurt", "shape_kurtVol")}
+    smoke.compare_blocks("stream card-vs-cpu", names, a, b,
+                         smoke.parity_tables(), ctx.beta_moments()[:3],
+                         noisy=True, kurt=kurt, pdf_ctx=ctx)
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_on_a_partial_day_mask_matches_plain():
+    """The streaming snapshot's input: slots past the cursor all empty.
+    The tiled kernel against its plain version on the valid windows and
+    bit for bit against the rowwise kernel; no window past the cursor is
+    valid."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(60)
+    rows, length, cursor = 4001, 240, 60
+    close = 10 * torch.exp(torch.cumsum(
+        torch.randn(rows, length, generator=g, device="cuda") * 1e-3, -1))
+    mask = torch.rand(rows, length, generator=g, device="cuda") > 0.05
+    mask[:, cursor:] = False
+    low = torch.where(mask, close * 0.999, 0.0)
+    high = torch.where(mask, close * 1.001, 0.0)
+    args = rolling.second_moment_inputs(low, high, mask, W)
+    valid = rolling._windowed_sum(mask, W) > W - 0.5
+    assert bool(valid.any()) and not bool(valid[:, cursor:].any())
+    before = dict(rolling_cuda.launches)
+    got = rolling_cuda.second_moments(*args, W)
+    base = rolling_cuda._second_moments_rowwise(*args, W)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"tiled": 1, "rowwise": 1}
+    for a, b, c in zip(got, base, rolling_cuda.second_moments_plain(*args,
+                                                                    W)):
+        assert same_bits(a, b)
+        torch.testing.assert_close(a[valid], c[valid], rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_packed_side_outputs_on_the_card():
+    """``compute_packed(..., result_spec=, factor_stats=True)`` on the
+    card: the payload is byte for byte the CPU encode of the card's raw
+    block, the stats' counts/min/max the host sketch's, and the raw block
+    the same with and without the side outputs."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        factorplane)
+
+    bars, mask = wire_mode_case(12, 240, 1, 1, 4, lead=(2, 64))
+    arrays = wire.encode(bars, mask).arrays
+    names = factor_names()
+    spec = rw.ResultWireSpec.for_names(names, days=2, spill_rows=64)
+    raw = compute_packed(arrays, "wire", rolling_impl="cuda")
+    payload, stats = compute_packed(arrays, "wire", result_spec=spec,
+                                    factor_stats=True, rolling_impl="cuda")
+    raw2, stats2 = compute_packed(arrays, "wire", factor_stats=True,
+                                  rolling_impl="cuda")
+    assert payload.is_cuda and same_bits(raw2, raw)
+    assert torch.equal(stats2, stats)
+    assert torch.equal(payload.cpu(), rw.encode_block(raw.cpu(), spec))
+    host = factorplane.factor_stats_host(raw.cpu().numpy())
+    got = stats.cpu().numpy()
+    for col in (0, 1, 2, 3, 4, 7, 8):
+        np.testing.assert_array_equal(got[:, col], host[:, col])
+    np.testing.assert_allclose(got[:, 5:7], host[:, 5:7], rtol=1e-5,
+                               atol=1e-7)

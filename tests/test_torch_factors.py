@@ -6,7 +6,10 @@ with ``rolling_impl='pallas_interpret'`` (the Pallas kernel on the
 interpreter) and ``'conv'``, on two-day batches of ten tickers drawn with
 the pathologies tests/test_parity.py draws: clean, ragged, zero-volume,
 constant-price, short (< 50 bar) days, fuzz seed 739 (two windows with
-exactly-equal betas) and one ``us_390`` batch.
+exactly-equal betas), and one batch each at ``us_390``, ``hk_halfday`` and
+``crypto_1440``. ``replicate_quirks=False`` is held across all 58 on the
+seven ``cn_ashare_240``/``us_390`` scenarios (``doc_vol50_ratio`` reaches
+``topk_sum`` at k = 50 there).
 
 NaN and inf positions must be exactly equal. Values are held by
 tests/test_parity.py's own comparator (``_check``: its RTOL/ATOL/
@@ -53,7 +56,13 @@ SCENARIOS = {
                 None, True),
     "us_390": (6, {"missing_prob": 0.05, "zero_volume_prob": 0.05},
                "us_390", True),
+    "hk_halfday": (7, {"missing_prob": 0.05, "zero_volume_prob": 0.05},
+                   "hk_halfday", True),
+    "crypto_1440": (8, {"missing_prob": 0.02}, "crypto_1440", True),
 }
+#: the scenarios the quirk switch is held on across all 58 factors
+QUIRK_SCENARIOS = ("clean", "ragged", "zerovol", "constant", "short",
+                   "seed739", "us_390")
 
 
 def _batch(data, seed, kw, session):
@@ -152,6 +161,47 @@ def test_quirk_switch_matches_jax():
     assert not failures, "\n".join(failures)
     quirky = compute_batch(bars, mask, names=names, device="cpu").numpy()
     assert not np.allclose(quirky[0], port[0])
+
+
+@pytest.mark.parametrize("label", QUIRK_SCENARIOS)
+def test_quirks_off_all_58_match_jax(label):
+    """``replicate_quirks=False`` across all 58 factors against JAX
+    ``compute_factors_jit(rolling_impl='conv')`` under test_parity's
+    comparator: NaN positions identical, values through ``_check_cell``."""
+    seed, kw, session, noisy = SCENARIOS[label]
+    days, codes, bars, mask = _batch(tdata, seed, kw, session)
+    names = factor_names()
+    port = compute_batch(bars, mask, session=session, device="cpu",
+                         replicate_quirks=False).numpy()
+    out = compute_factors_jit(jnp.asarray(bars), jnp.asarray(mask),
+                              names=names, replicate_quirks=False,
+                              rolling_impl="conv", session=session)
+    ref = np.stack([np.asarray(out[n]) for n in names])
+    beta = [_degenerate_beta_codes(pd.DataFrame(d), session=session)
+            for d in days]
+    pdf = [_lazy(lambda d=d: _doc_pdf_acceptable(pd.DataFrame(d),
+                                                 session=session))
+           for d in days]
+    failures = []
+    for i, name in enumerate(names):
+        a, b = port[i], ref[i]
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            failures.append(f"{label}/{name}: NaN positions differ")
+        for d in range(N_DAYS):
+            skip, num_scale = beta[d]
+            for t, code in enumerate(codes):
+                if name in BETA_Z and code in skip:
+                    continue
+                aux = {k: ref[names.index(k), d, t]
+                       for k in ("shape_kurt", "shape_kurtVol")}
+                aux["beta_num_scale"] = num_scale.get(code)
+                _check_cell(f"{label}/quirks-off/d{d}", name, code,
+                            b[d, t], a[d, t], noisy, failures, aux, pdf[d])
+    assert not failures, "\n".join(failures[:40])
+    quirky = compute_batch(bars, mask, session=session, device="cpu").numpy()
+    changed = {names[i] for i in range(len(names))
+               if not np.array_equal(quirky[i], port[i], equal_nan=True)}
+    assert {"doc_vol50_ratio", "mmt_bottom20VolumeRet"} <= changed
 
 
 def test_compute_batch_takes_tensors_and_casts_f64():

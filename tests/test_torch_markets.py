@@ -90,9 +90,10 @@ def test_config_fields_carry_across(monkeypatch):
     assert jconfig.Config.from_env().replicate_quirks is False
     # the host driver's fields: the JAX package's defaults and overrides
     # ... and the evaluation's data roots and stock-pool file
+    # ... and the streaming snapshot's finalize
     fields = ("minute_dir", "days_per_batch", "wire_transfer",
               "debug_validate", "attribution_tolerance", "daily_pv_path",
-              "factor_dir", "stock_pool_path")
+              "factor_dir", "stock_pool_path", "finalize_impl")
     for field in fields:
         assert getattr(t, field) == getattr(j, field), field
     assert t.days_per_batch == 8
@@ -102,13 +103,43 @@ def test_config_fields_carry_across(monkeypatch):
     monkeypatch.setenv("MFF_DAILY_PV_PATH", "/data/pv.parquet")
     monkeypatch.setenv("MFF_FACTOR_DIR", "/data/factors")
     monkeypatch.setenv("MFF_STOCK_POOL_PATH", "/data/pool.parquet")
+    monkeypatch.setenv("MFF_FINALIZE_IMPL", "fast")
     tc, jc = tconfig.Config.from_env(), jconfig.Config.from_env()
     for field in fields:
         assert getattr(tc, field) == getattr(jc, field), field
     assert (tc.minute_dir, tc.days_per_batch, tc.attribution_tolerance,
-            tc.daily_pv_path, tc.factor_dir, tc.stock_pool_path) \
+            tc.daily_pv_path, tc.factor_dir, tc.stock_pool_path,
+            tc.finalize_impl) \
         == ("/data/minute", 3, 0.25, "/data/pv.parquet", "/data/factors",
-            "/data/pool.parquet")
+            "/data/pool.parquet", "fast")
     # every port field is a JAX field; the others are not fields at all
     assert {f.name for f in dataclasses.fields(t)} <= set(vars(j))
     assert not hasattr(t, "mesh_shape") and not hasattr(t, "not_ported")
+
+
+def test_sessions_module_pins_every_jax_constant():
+    """The port's ``sessions.py`` (the cn_ashare_240 constants) equals the
+    JAX package's, name by name, and its slot conversions agree."""
+    from replication_of_minute_frequency_factor_tpu import sessions as js
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        sessions as ts)
+
+    names = [k for k in vars(js) if k.isupper()]
+    assert len(names) >= 19
+    assert sorted(k for k in vars(ts) if k.isupper()) == sorted(names)
+    for k in names:
+        a, b = getattr(ts, k), getattr(js, k)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        elif k == "SPEC":
+            assert a.describe() == b.describe()
+        else:
+            assert type(a) is type(b) and a == b, k
+    times = np.array([93000000, 112900000, 113000000, 130000000, 145900000,
+                      150000000, 93000500, -1, 0])
+    np.testing.assert_array_equal(ts.time_to_slot(times),
+                                  js.time_to_slot(times))
+    slots = np.arange(240)
+    np.testing.assert_array_equal(ts.slot_to_time(slots),
+                                  js.slot_to_time(slots))

@@ -11,7 +11,9 @@ package's host driver on the same directory (codes, dates and row order
 bitwise, NaN and inf positions identical, values through
 tests/test_parity.py's comparator),
 and against the vendored reference snapshot at the JAX test's own
-tolerance; and the ``pipeline.*`` telemetry of tests/test_telemetry.py.
+tolerance; the ``pipeline.*`` telemetry of tests/test_telemetry.py; and
+the cache as one contract: each package resumes a parquet and an ``.mffz``
+cache the other wrote.
 """
 
 import json
@@ -752,3 +754,50 @@ def test_reconcile_flags_unattributed_time_only_past_the_floor():
     assert reconcile(0.06, {"io": 0.01})["ok"]  # under the 0.05 s floor
     over = reconcile(1.0, {"grid": 0.8, "device": 0.7})
     assert over["ok"] and over["overlap_s"] == 0.5
+
+
+def _run(package, minute_dir, cache_path=None, **kw):
+    """One package's ``compute_exposures`` over ``minute_dir`` (NAMES, two
+    days a batch)."""
+    if package == "port":
+        return compute_exposures(minute_dir, NAMES, cache_path=cache_path,
+                                 cfg=_cfg(), **kw)
+    return jax_compute_exposures(minute_dir, NAMES, cache_path=cache_path,
+                                 cfg=JConfig(days_per_batch=2),
+                                 progress=False, **kw)
+
+
+@pytest.mark.parametrize("fmt", ["parquet", "mffz"])
+@pytest.mark.parametrize("writer,reader", [("jax", "port"),
+                                           ("port", "jax")])
+def test_each_package_resumes_the_others_cache(tmp_path, rng, fmt, writer,
+                                               reader):
+    """The on-disk cache is one contract: a cache one package wrote, as
+    parquet or framed ``.mffz``, resumes in the other, which computes
+    only the new day, keeps every cached row's bits, and writes new rows
+    bitwise its own fresh run's."""
+    d = tmp_path / "kline"
+    d.mkdir()
+    for ds in ("2024-01-02", "2024-01-03"):
+        _write_day(str(d), rng, ds, missing_prob=0.05)
+    cache = str(tmp_path / f"factors.{fmt}")
+    base = _run(writer, str(d), cache)
+    new_day = np.datetime64("2024-01-04")
+    _write_day(str(d), rng, str(new_day))
+    seen = []
+    got = _run(reader, str(d), cache, fault_hook=seen.append)
+    assert seen == [new_day]
+    fresh = _run(reader, str(d))
+    old = got.columns["date"] < new_day
+    assert old.sum() == len(base) == 12 and len(got) == 18
+    mine = fresh.columns["date"] == new_day
+
+    def col(table, key):
+        v = np.asarray(table.columns[key])
+        return v.astype(str) if key == "code" else v
+
+    for key in ("code", "date", *NAMES):
+        np.testing.assert_array_equal(col(got, key)[old], col(base, key),
+                                      err_msg=key)
+        np.testing.assert_array_equal(col(got, key)[~old],
+                                      col(fresh, key)[mine], err_msg=key)

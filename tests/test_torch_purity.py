@@ -64,7 +64,9 @@ def test_importing_every_port_module_loads_no_jax():
     for mod in ("pipeline", "data.io", "native", "utils.debug",
                 "telemetry.registry", "telemetry.attribution", "config",
                 "frames", "eval_ops", "plotting", "factor", "minfreq",
-                "__main__"):
+                "__main__", "data.result_wire", "telemetry.factorplane",
+                "ops.incremental", "stream.carry", "stream.fastpath",
+                "stream.engine", "serve.executables", "sessions"):
         assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
     # pyarrow loads only inside the functions that read and write files,
@@ -129,6 +131,37 @@ def test_compute_packed_refuses_the_cpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compute_packed((bars, mask.astype(np.uint8)), "raw", device="cuda")
     assert compute_packed(arrays, "wire", device="cpu").shape == (58, 1, 2)
+
+
+def test_packed_side_outputs_and_streaming_refuse_the_cpu_unless_asked(
+        monkeypatch):
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        StreamEngine, compute_exposures_streamed, compute_packed)
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bars = np.full((1, 2, 240, 5), 10.0, np.float32)
+    mask = np.ones((1, 2, 240), bool)
+    names = ("mmt_am", "vol_return1min")
+    spec = rw.ResultWireSpec.for_names(names, days=1)
+    arrays = (bars, mask.astype(np.uint8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_packed(arrays, "raw", names, result_spec=spec,
+                       factor_stats=True)
+    payload, stats = compute_packed(arrays, "raw", names, result_spec=spec,
+                                    factor_stats=True, device="cpu")
+    assert payload.device.type == stats.device.type == "cpu"
+    for make in (lambda: StreamEngine(2, names=names),
+                 lambda: compute_exposures_streamed(bars[0], mask[0],
+                                                    names=names)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamEngine(2, names=names, device="cuda")
+    eng = StreamEngine(2, names=names, device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.carry["bars"].device.type == "cpu"
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():

@@ -213,11 +213,23 @@ def test_compute_packed_equals_compute_batch(session):
 
 
 def test_compute_packed_refuses_what_is_not_ported():
+    """The result wire and the stats sketch are ported (held in
+    tests/test_torch_result_wire.py); what the packed path still refuses
+    is an unknown kind and a result spec pinned for another factor
+    list."""
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+
     bars, mask = wire_mode_case(4, 240, 1, 1, 1)
     arrays = tw.encode(bars, mask).arrays
-    with pytest.raises(NotImplementedError, match="not ported"):
-        compute_packed(arrays, "wire", result_spec=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        compute_packed(arrays, "wire", factor_stats=True, device="cpu")
+    names = ("mmt_am", "vol_return1min")
+    with pytest.raises(ValueError, match="spec pins 1 factors"):
+        compute_packed(arrays, "wire", names,
+                       result_spec=rw.ResultWireSpec.for_names(names[:1]),
+                       device="cpu")
+    payload, stats = compute_packed(
+        arrays, "wire", names, factor_stats=True, device="cpu",
+        result_spec=rw.ResultWireSpec.for_names(names, days=2))
+    assert payload.dtype == torch.uint8 and stats.shape == (2, 9)
     with pytest.raises(ValueError, match="kind"):
         compute_packed(arrays, "bars", device="cpu")

@@ -201,3 +201,68 @@ def qcut_cases():
         nan_lanes = ~m & (rng.random(x.shape) < 0.3)
         cases[name] = (x, m, nan_lanes)
     return cases
+
+
+def stream_day(seed: int, tickers: int, n_slots: int = 240):
+    """One day ``(bars [T, S, 5] f32, mask [T, S])`` drawn as the JAX
+    package's ``bench.make_batch`` draws a batch day: a tick-aligned close
+    random walk, open within 1e-4 of it, a 2-bps wick, board-lot volume
+    (zero on some bars), 2% of bars missing. Absent bars keep their drawn
+    values: the kernels must never read them."""
+    rng = np.random.default_rng(seed)
+    shape = (1, tickers, n_slots)
+    close = 10.0 * np.exp(np.cumsum(
+        rng.standard_normal(shape, dtype=np.float32) * np.float32(1e-3),
+        axis=-1))
+    open_ = close * (1 + rng.standard_normal(shape, dtype=np.float32)
+                     * np.float32(1e-4))
+    high = np.maximum(open_, close) * 1.0002
+    low = np.minimum(open_, close) * 0.9998
+    volume = (rng.integers(0, 1000, shape) * 100).astype(np.float32)
+    bars = np.stack([open_, high, low, close, volume], axis=-1)
+    bars[..., :4] = np.round(bars[..., :4], 2)
+    mask = rng.random(shape, dtype=np.float32) > 0.02
+    return bars[0].astype(np.float32), mask[0]
+
+
+def minutes_of(bars, mask, lo: int, hi: int):
+    """Minutes ``[lo, hi)`` of a day as an ingest micro-batch: ``(bars
+    [B, T, 5], present [B, T])``."""
+    return (np.ascontiguousarray(np.swapaxes(bars[:, lo:hi], 0, 1)),
+            np.ascontiguousarray(mask[:, lo:hi].T))
+
+
+def feed(engine, bars, mask, lo: int, hi: int, micro: int = 8) -> None:
+    """Ingest minutes ``[lo, hi)`` into ``engine`` ``micro`` at a time."""
+    s = lo
+    while s < hi:
+        e = min(s + micro, hi)
+        engine.ingest_minutes(*minutes_of(bars, mask, s, e))
+        s = e
+
+
+def feed_cohorts(engine, bars, mask, lo: int, hi: int, k: int) -> None:
+    """Ingest minutes ``[lo, hi)`` as ``k``-ticker cohorts (the absent
+    tickers and the last cohort's short tail padded with ``idx == T``),
+    advancing after each minute."""
+    n = mask.shape[0]
+    for t in range(lo, hi):
+        for c0 in range(0, n, k):
+            sel = np.arange(c0, min(c0 + k, n))
+            idx = np.where(mask[sel, t], sel, n).astype(np.int32)
+            rows = np.ascontiguousarray(bars[sel, t])
+            if len(sel) < k:
+                idx = np.concatenate([idx, np.full(k - len(sel), n,
+                                                   np.int32)])
+                rows = np.concatenate(
+                    [rows, np.zeros((k - len(sel), 5), np.float32)])
+            engine.ingest_cohort(rows, idx)
+        engine.advance()
+
+
+def prefix_day(bars, mask, t_stop: int):
+    """The day cut at minute ``t_stop``: bars of absent and later lanes
+    zeroed, later slots masked out (what a carry holds at that minute)."""
+    keep = np.zeros_like(mask)
+    keep[:, :t_stop] = mask[:, :t_stop]
+    return np.where(keep[..., None], bars, 0.0).astype(np.float32), keep
