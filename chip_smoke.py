@@ -93,11 +93,35 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    through ``compute_packed_prepared(..., result_spec=, factor_stats=True)``
    (the spill floor grown until nothing overflows), with the same holds
    and the payload/raw byte ratio. Update, cohort and snapshot times by
-   CUDA events, the carry's bytes and the peak memory.
+   CUDA events, the carry's bytes and the peak memory;
+11. the factor server at full width: ``FactorServer`` on the card over
+   ``SyntheticSource(16 days x 5000 tickers, seed 0)`` on ``cn_ashare_240``,
+   all 58 factors, ``rolling_impl='cuda'``, ``stream=True`` warmed for
+   16-minute ingests. With the launch counts set to 0 just before and read
+   after each step: the cold block ``[0, 8)`` (one tiled launch), a warm
+   repeat of the whole block (nothing built, one cache hit, no launch), IC,
+   decile and wire answers on the cached block, 16 concurrent identical
+   queries on ``[8, 16)`` (one dispatch, one launch, the impl resolved
+   ``cuda``), the first query on ``[4, 12)`` with the callables warm (one
+   launch, nothing built), two 16-minute ingests and an intraday query
+   (one launch).
+   Held: the served exposures bitwise ``compute_batch`` on the block's
+   decoded bars, close/valid bitwise, IC bitwise ``eval_ops.ic_series`` and
+   decile counts bitwise ``_qcut_labels`` on the cached block, the wire
+   payload byte-identical to ``encode_block``, the intraday answer bitwise
+   a standalone ``StreamEngine``'s snapshot, the same queries through the
+   edge and the legacy HTTP doors on 127.0.0.1 bitwise the in-process
+   answers (wire bodies byte-identical), ``/healthz`` naming the card and
+   the HBM sampler's bytes in use between the server's tensors' bytes and
+   the driver's ``mem_get_info`` count. Timed:
+   the cold build, cache-hit answers, request walls by kind in process and
+   over the edge, a warm ``build_block``'s enqueue and fetch apart, and the
+   tiled kernel at the block's ``[40000, 240]`` against its plain version.
 
 The second-to-last line of stdout is a JSON object with one entry per
-kernel and path (the tiled kernel on the host driver's batches and on the
-streaming snapshots, the rowwise kernel on the window-20 path); the last is
+kernel and path (the tiled kernel on the host driver's batches, on the
+streaming snapshots and on the server's block builds, the rowwise kernel
+on the window-20 path); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -264,9 +288,11 @@ def launched(before):
     return {k: n - before[k] for k, n in rolling_cuda.launches.items()}
 
 
-def hold_to_plain(label, got, want, valid, rtol, atol):
+def hold_to_plain(label, got, want, valid, rtol, atol,
+                  constant_row: bool = True):
     """Finite values within rtol/atol of the plain version on valid lanes
-    and exactly-zero moments on the constant row 1; returns max |diff|."""
+    and, on :func:`moment_case`'s inputs (``constant_row``), exactly-zero
+    moments on the constant row 1; returns max |diff|."""
     err = 0.0
     for name, a, b in zip(("s_xx", "s_yy", "s_xy"), got, want):
         a, b = a[valid], b[valid]
@@ -280,7 +306,7 @@ def hold_to_plain(label, got, want, valid, rtol, atol):
                  f"{float(diff.max()):.3e})")
         if diff.numel():
             err = max(err, float(diff.max()))
-    if valid.shape[0] > 1 and bool(valid[1].any()) and any(
+    if constant_row and valid.shape[0] > 1 and bool(valid[1].any()) and any(
             float(s[1][valid[1]].abs().max()) != 0.0 for s in got):
         fail(f"{label}: the constant row's moments are not exactly zero")
     return err
@@ -1805,6 +1831,458 @@ def streaming_path(bars, mask, tables, card: str) -> dict:
             "bound_by": by}
 
 
+#: phase 11: the served source (days x tickers), the block's day range,
+#: the concurrent identical queries, the HTTP timing rounds per kind
+SERVE_DAYS, SERVE_BLOCK, SERVE_COALESCE, SERVE_ROUNDS = 16, 8, 16, 20
+#: the phase's ingest micro-batch and the minutes it ingests
+SERVE_MICRO, SERVE_MINUTES = 16, 32
+
+
+def same_values(a: np.ndarray, b: np.ndarray) -> bool:
+    """Bitwise f32 equality outside NaN lanes, NaN lanes identical (a NaN
+    that went through a Python float may change its sign bit)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if a.shape != b.shape:
+        return False
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool(np.array_equal(na, nb) and np.array_equal(
+        a[~na].view(np.uint32), b[~nb].view(np.uint32)))
+
+
+def fwd_returns_ref(close, valid, horizon: int):
+    """The forward close returns and their validity, written apart from
+    the server's ``serve.engine._fwd_returns``, with the same ops."""
+    fwd = torch.full_like(close, float("nan"))
+    fwd[:-horizon] = close[horizon:]
+    ok = torch.zeros_like(valid)
+    ok[:-horizon] = valid[horizon:]
+    return fwd / close - 1.0, ok & valid
+
+
+def serve_path(tables, card: str) -> dict:
+    """Phase 11: the factor server at full width on the card; see the
+    module docstring. Returns the kernels line's entry for the block
+    build's tiled kernel."""
+    import threading
+    import urllib.request
+
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        StreamEngine, compute_batch, eval_ops)
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, Query, ServeConfig, SyntheticSource, WireClient,
+        serve_frontdoor)
+    from replication_of_minute_frequency_factor_tpu_torch.serve.http import (
+        WIRE_CONTENT_TYPE)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry)
+
+    names = factor_names()
+    d0, d1, d2 = 0, SERVE_BLOCK, 2 * SERVE_BLOCK
+    t0 = time.perf_counter()
+    src = SyntheticSource(n_days=SERVE_DAYS, n_tickers=TICKERS, seed=0)
+    log(f"phase 11 input: SyntheticSource({SERVE_DAYS} days x {TICKERS} "
+        f"tickers, seed 0, {src.session.name}) in "
+        f"{time.perf_counter() - t0:.2f} s (host); all {len(names)} "
+        f"factors, rolling_impl=cuda, stream=True, stream_batches="
+        f"({SERVE_MICRO},)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tel = Telemetry()
+    # a latency objective a cold build cannot trip; the sampler threads on
+    scfg = ServeConfig(slo_latency_ms=60_000.0)
+    t0 = time.perf_counter()
+    srv = FactorServer(src, names=names, telemetry=tel, serve_cfg=scfg,
+                       rolling_impl="cuda", stream=True,
+                       stream_batches=(SERVE_MICRO,), device="cuda")
+    reg = tel.registry
+    log(f"phase 11 server up in {time.perf_counter() - t0:.2f} s on "
+        f"{srv.device} (stream engine warmed: "
+        f"{int(reg.counter_value('serve.executables', outcome='miss'))} "
+        "callables built)")
+    client = srv.client(timeout=600)
+    doors = []
+    try:
+        def misses():
+            return reg.counter_value("serve.executables", outcome="miss")
+
+        def wall_ms(fn):
+            t = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t) * 1e3
+
+        # --- the main path: counts to 0 just before, read just after ---
+        rolling_cuda.reset_launches()
+        rolling.IMPL_COUNTS.clear()
+        steps = {}
+
+        def step(label):
+            steps[label] = dict(rolling_cuda.launches)
+
+        # cold: the first block builds its callable
+        _, cold_ms = wall_ms(lambda: client.factors(d0, d1,
+                                                    names=("mmt_am",)))
+        step("cold")
+        # warm repeat: the whole block from the cache
+        m0, hits0 = misses(), reg.counter_value("serve.cache",
+                                                outcome="hit")
+        full, _ = wall_ms(lambda: client.factors(d0, d1))
+        step("repeat")
+        repeat_built = misses() - m0
+        repeat_hit = reg.counter_value("serve.cache", outcome="hit") - hits0
+        hit_ms = [wall_ms(lambda: client.factors(
+            d0, d1, names=("mmt_am",)))[1] for _ in range(SERVE_ROUNDS)]
+        ic_names = ("mmt_ols_qrs", "vol_return1min")
+        ics = {n: client.ic(n, d0, d1, horizon=1) for n in ic_names}
+        deciles = {n: client.decile(n, d0, d1, horizon=1, group_num=5)
+                   for n in ic_names}
+        wire_ans = srv.submit(Query("factors", d0, d1, encoding="wire")
+                              ).result(600)
+        step("queries")
+        # 16 concurrent identical queries over a fresh range: one dispatch
+        srv.scfg.batch_window_s = 0.25
+        dis0 = reg.counter_total("serve.dispatches")
+        co0 = reg.counter_value("serve.coalesced_requests")
+        rolling.IMPL_COUNTS.clear()
+        answers, errors = [], []
+
+        def ask():
+            try:
+                answers.append(client.factors(d1, d2, names=("mmt_am",)))
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=ask)
+                   for _ in range(SERVE_COALESCE)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        coalesce_ms = (time.perf_counter() - t) * 1e3
+        srv.scfg.batch_window_s = 0.002
+        step("coalesce")
+        impl_counts = dict(rolling.IMPL_COUNTS)
+        coalesced = (reg.counter_total("serve.dispatches") - dis0,
+                     reg.counter_value("serve.coalesced_requests") - co0)
+        # the first build of another new range, callables warm, alone
+        m0 = misses()
+        _, warm_new_ms = wall_ms(lambda: client.factors(
+            d1 // 2, d1 // 2 + SERVE_BLOCK, names=("mmt_am",)))
+        step("new range")
+        new_built = misses() - m0
+        # intraday: two ingests, then a snapshot
+        day_bars, day_mask = src.slab(0, 1)
+        micro = [cases.minutes_of(day_bars[0], day_mask[0], lo,
+                                  lo + SERVE_MICRO)
+                 for lo in range(0, SERVE_MINUTES, SERVE_MICRO)]
+        for b, p in micro:
+            client.ingest(b, p)
+        intraday = client.intraday()
+        step("intraday")
+        # --- end of the main path ---
+
+        launches = {}
+        prev = {"tiled": 0, "rowwise": 0}
+        for label, now in steps.items():
+            launches[label] = {k: now[k] - prev[k] for k in now}
+            prev = now
+        log(f"phase 11 launches by step: {launches}; rolling impl on the "
+            f"coalesced build {impl_counts}")
+        want = {"cold": 1, "repeat": 0, "queries": 0, "coalesce": 1,
+                "new range": 1, "intraday": 1}
+        for label, n in want.items():
+            if launches[label] != {"tiled": n, "rowwise": 0}:
+                fail(f"phase 11 {label}: launched {launches[label]}, "
+                     f"expected the tiled kernel {n} time(s)")
+        if repeat_built != 0 or repeat_hit != 1:
+            fail(f"phase 11 warm repeat: {repeat_built} callables built, "
+                 f"{repeat_hit} cache hits (want 0 and 1)")
+        if new_built != 0:
+            fail(f"phase 11: a new range of the same extent built "
+                 f"{new_built} callables")
+        if errors or len(answers) != SERVE_COALESCE:
+            fail(f"phase 11 coalescing: {errors[:3]}")
+        if coalesced != (1, SERVE_COALESCE):
+            fail(f"phase 11 coalescing: {SERVE_COALESCE} identical queries "
+                 f"gave {coalesced[0]} dispatches for {coalesced[1]} "
+                 "coalesced requests")
+        if impl_counts != {("cuda", "cuda"): 1}:
+            fail(f"phase 11: rolling impl resolved {impl_counts}")
+        log(f"phase 11 cold first block [{d0}, {d1}) (builds the callable, "
+            f"one factor's answer): {cold_ms:.2f} ms wall; warm repeat of "
+            f"the whole block: 0 built, 1 cache hit, 0 launches; cache-hit "
+            f"answer (one factor) {spread(hit_ms)} wall; {SERVE_COALESCE} "
+            f"concurrent queries on the new range [{d1}, {d2}) with warm "
+            f"callables: 1 dispatch, 1 tiled launch, {coalesce_ms:.2f} ms "
+            f"wall for all (the 0.25 s collection window included); the "
+            f"first block of another new range [{d1 // 2}, "
+            f"{d1 // 2 + SERVE_BLOCK}), callables warm, alone: "
+            f"{warm_new_ms:.2f} ms wall, nothing built ({card})")
+
+        # 1. the block against compute_batch on its decoded bars
+        bars, mask = src.slab(d0, d1)
+        w = wire.encode(bars, mask, floor={})
+        buf, spec = wire.pack_arrays(w.arrays)
+        dbars, dmask = wire.decode(*wire.unpack(
+            torch.from_numpy(buf).cuda(), spec))
+        ref = compute_batch(dbars, dmask, device="cuda",
+                            rolling_impl="cuda").cpu().numpy()
+        for i, n in enumerate(names):
+            if not same_values(full["exposures"][n], ref[i]):
+                fail(f"phase 11: served {n} differs from compute_batch on "
+                     "the block's decoded bars")
+        block = srv.cache.get((d0, d1))
+        if block is None:
+            fail("phase 11: the block is not in the exposure cache")
+        m = dmask.cpu().numpy()
+        last = np.where(m, np.arange(m.shape[-1]), -1).max(axis=-1)
+        valid = last >= 0
+        close = np.take_along_axis(dbars[..., 3].cpu().numpy(),
+                                   np.maximum(last, 0)[..., None],
+                                   axis=-1)[..., 0]
+        close = np.where(valid, close, np.float32(np.nan))
+        if not (same_values(block["close"].cpu().numpy(), close)
+                and np.array_equal(block["valid"].cpu().numpy(), valid)):
+            fail("phase 11: the block's close/valid planes differ")
+        log(f"phase 11 block [{d0}, {d1}): all {len(names)} served "
+            "exposures bitwise compute_batch on the block's decoded bars "
+            "(NaN positions identical); close and valid bitwise")
+
+        # 2. IC and decile against eval_ops on the fetched block
+        exposures = block["exposures"]
+        ret, ok = fwd_returns_ref(block["close"], block["valid"], 1)
+        for n in ic_names:
+            exp = exposures[names.index(n)]
+            v = ok & torch.isfinite(exp) & torch.isfinite(ret)
+            ic, ric = eval_ops.ic_series(torch.where(v, exp, 0.0),
+                                         torch.where(v, ret, 0.0), v)
+            for key, want_ in (("ic", ic), ("rank_ic", ric)):
+                if not same_values(ics[n][key], want_.cpu().numpy()):
+                    fail(f"phase 11: served {key} of {n} differs from "
+                         "eval_ops.ic_series on the block")
+            vv = block["valid"] & torch.isfinite(exp)
+            lab = eval_ops._qcut_labels(exp, vv, 5)
+            counts = torch.stack([((lab == g) & vv).sum(dim=1)
+                                  for g in range(5)], dim=1)
+            if deciles[n]["counts"] != counts.cpu().tolist():
+                fail(f"phase 11: served decile counts of {n} differ")
+        log(f"phase 11 IC/rank-IC of {ic_names} bitwise "
+            "eval_ops.ic_series on the block; decile counts bitwise "
+            "eval_ops._qcut_labels")
+
+        # 3. the wire answer against encode_block on the block
+        spec_r = srv.engine.result_spec(SERVE_BLOCK)
+        payload = rw.encode_block(exposures, spec_r).cpu().numpy()
+        if wire_ans["payload"].tobytes() != payload.tobytes():
+            fail("phase 11: the wire payload is not encode_block's")
+        dec, verdict = rw.decode_block(payload, len(names), SERVE_BLOCK,
+                                       TICKERS, spec_r.spill_rows,
+                                       strict=False)
+        log(f"phase 11 wire answer: {payload.nbytes} B byte-identical to "
+            f"result_wire.encode_block on the block ({verdict['widened']} "
+            f"widened slices, {verdict['overflow']} over the "
+            f"{spec_r.spill_rows}-row spill budget)")
+
+        # 6. intraday against a standalone engine on the same minutes
+        eng = StreamEngine(TICKERS, names=names, rolling_impl="cuda",
+                           telemetry=Telemetry(), device="cuda")
+        for b, p in micro:
+            eng.ingest_minutes(b, p)
+        s_exp, s_ready = eng.snapshot()
+        s_exp, s_ready = s_exp.cpu().numpy(), s_ready.cpu().numpy()
+        if intraday["minute"] != SERVE_MINUTES:
+            fail(f"phase 11 intraday at minute {intraday['minute']}")
+        for i, n in enumerate(names):
+            if not (same_values(intraday["exposures"][n], s_exp[i])
+                    and intraday["ready"][n] == s_ready[i].tolist()):
+                fail(f"phase 11 intraday {n} differs from a standalone "
+                     "StreamEngine snapshot")
+        del eng
+        log(f"phase 11 intraday after ingesting minutes 0-{SERVE_MICRO} and "
+            f"{SERVE_MICRO}-{SERVE_MINUTES} of day 0: every exposure and "
+            "readiness lane bitwise a standalone StreamEngine snapshot")
+
+        # 7. HTTP: the edge and the legacy binding
+        edge = serve_frontdoor(srv, port=0, transport="edge")
+        doors.append(edge)
+        legacy = serve_frontdoor(srv, port=0, transport="legacy")
+        doors.append(legacy)
+        sub = ["mmt_am", "mmt_ols_qrs", "liq_openvol"]
+        in_proc = client.factors(d0, d1, names=sub)
+        bodies = {}
+        for label, door in (("edge", edge), ("legacy", legacy)):
+            cli = WireClient(*door.server_address[:2], timeout=600)
+            try:
+                st, doc = cli.query_json({"kind": "factors", "start": d0,
+                                          "end": d1, "names": sub})
+                if st != 200 or any(
+                        not same_values(doc["exposures"][n],
+                                        in_proc["exposures"][n])
+                        for n in sub):
+                    fail(f"phase 11 {label}: JSON factors differ from the "
+                         "in-process answer")
+                st, doc = cli.query_json({"kind": "ic", "start": d0,
+                                          "end": d1,
+                                          "factor": "mmt_ols_qrs"})
+                if st != 200 or not same_values(
+                        doc["ic"], ics["mmt_ols_qrs"]["ic"]):
+                    fail(f"phase 11 {label}: IC differs from in-process")
+                st, hdrs, body = cli.post_json(
+                    "/v1/query", {"kind": "factors", "start": d0,
+                                  "end": d1},
+                    headers={"Accept": WIRE_CONTENT_TYPE})
+                if st != 200:
+                    fail(f"phase 11 {label}: wire query answered {st}")
+                bodies[label] = body
+                # the frame's payload (not its decode: at this width the
+                # default spill budget overflows, and a strict decode
+                # refuses it as the JAX package's does)
+                _meta, framed, _ = rw.unpack_frame(body)
+                if np.asarray(framed).tobytes() != \
+                        wire_ans["payload"].tobytes():
+                    fail(f"phase 11 {label}: the wire frame's payload is "
+                         "not the in-process answer's")
+            finally:
+                cli.close()
+        if bodies["edge"] != bodies["legacy"]:
+            fail("phase 11: edge and legacy wire bodies differ")
+        # request latency by kind, in process and over the edge
+        cli = WireClient(*edge.server_address[:2], timeout=600)
+        lat = {"in-process": {}, "edge": {}}
+        try:
+            for kind_, doc in (
+                    ("factors", {"kind": "factors", "start": d0, "end": d1,
+                                 "names": ["mmt_am"]}),
+                    ("ic", {"kind": "ic", "start": d0, "end": d1,
+                            "factor": "mmt_am"}),
+                    ("decile", {"kind": "decile", "start": d0, "end": d1,
+                                "factor": "mmt_am"})):
+                q = Query(kind_, d0, d1, names=tuple(doc.get("names", ()))
+                          or None, factor=doc.get("factor"))
+                lat["in-process"][kind_] = [wall_ms(lambda: srv.submit(
+                    q).result(600))[1] for _ in range(SERVE_ROUNDS)]
+                lat["edge"][kind_] = [wall_ms(lambda: cli.query_json(doc)
+                                              )[1]
+                                      for _ in range(SERVE_ROUNDS)]
+        finally:
+            cli.close()
+        for where, by_kind in lat.items():
+            log(f"phase 11 request wall ms {where} ({card}): " + "; ".join(
+                f"{k} p50 {np.percentile(v, 50):.3f} p95 "
+                f"{np.percentile(v, 95):.3f}" for k, v in by_kind.items()))
+        log("phase 11 serve.request_seconds (server side, all requests) ms: "
+            + "; ".join(
+                f"{k} p50 {st['p50'] * 1e3:.3f} p95 {st['p95'] * 1e3:.3f} "
+                f"n={st['count']}" for k in ("factors", "ic", "decile",
+                                             "ingest", "intraday")
+                if (st := reg.histogram_stats("serve.request_seconds",
+                                              kind=k))))
+        log(f"phase 11 HTTP on 127.0.0.1 (edge and legacy): JSON factors "
+            f"and IC bitwise the in-process answers; wire bodies "
+            f"byte-identical between the doors, their payload the "
+            f"in-process wire answer's")
+
+        # 8. health: the card's name and a measured memory watermark
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{edge.server_address[1]}/healthz",
+                timeout=60) as resp:
+            health = json.loads(resp.read())
+        if kind_name(card) not in " ".join(health["replica"]["devices"]):
+            fail(f"phase 11 /healthz names {health['replica']['devices']}")
+        if not health["hbm_available"]:
+            fail("phase 11 /healthz: the HBM sampler is unavailable")
+        # the sampler reads the caching allocator's counters, the ones
+        # max_memory_allocated returns, so it is held against readings
+        # of its own: from below, the bytes of the tensors the server
+        # holds (cached blocks plus the stream carry); from above, the
+        # bytes the driver counts in use on the card
+        from replication_of_minute_frequency_factor_tpu_torch.stream import (
+            carry as carry_mod)
+        torch.cuda.synchronize()
+        hbm = tel.hbm.sample("phase11", force=True)
+        free_b, total_b = torch.cuda.mem_get_info()
+        held = srv.cache.nbytes + carry_mod.carry_nbytes(
+            srv.stream_engine.carry)
+        peak = torch.cuda.max_memory_allocated()
+        if not hbm["available"] or not (
+                held <= hbm["bytes_in_use"] <= total_b - free_b
+                and hbm["bytes_in_use"] <= hbm["peak_bytes"]
+                <= total_b - free_b):
+            fail(f"phase 11 HBM sampler: {hbm} against the server's "
+                 f"tensors {held} B and the driver's {total_b - free_b} B "
+                 "in use")
+        log(f"phase 11 /healthz: devices {health['replica']['devices']}, "
+            f"hbm_available true; sampler in use {hbm['bytes_in_use']} B "
+            f"between the server's tensors {held} B and the driver's "
+            f"{total_b - free_b} B in use; sampler peak "
+            f"{hbm['peak_bytes']} B (the counter max_memory_allocated "
+            f"reads: {peak} B, {peak / 2**30:.3f} GiB) ({card})")
+
+        # launch and fetch timed apart on a direct block build
+        eng = srv.engine
+        rolling_cuda.reset_launches()
+        builds = []
+        for _ in range(5):
+            t = time.perf_counter()
+            blk = eng.build_block(bars, mask)
+            t_launch = time.perf_counter()
+            _ = blk["exposures"].cpu()
+            builds.append(((t_launch - t) * 1e3,
+                           (time.perf_counter() - t_launch) * 1e3))
+        log(f"phase 11 ServeEngine.build_block [{d0}, {d1}) warm ({card}): "
+            f"returns after enqueue in {spread([b[0] for b in builds])}; "
+            f"the fetch then waits {spread([b[1] for b in builds])}")
+        del blk
+
+        # the kernel at the block's shape, on the block's decoded bars
+        low = dbars[..., 2].reshape(-1, 240).contiguous()
+        high = dbars[..., 1].reshape(-1, 240).contiguous()
+        pm = dmask.reshape(-1, 240)
+        args = rolling.second_moment_inputs(low, high, pm, WINDOW)
+        vmask = rolling._windowed_sum(pm, WINDOW) > WINDOW - 0.5
+        got = rolling_cuda.second_moments(*args, WINDOW)
+        err = hold_to_plain("phase 11 second_moments",
+                            got, rolling_cuda.second_moments_plain(
+                                *args, WINDOW), vmask, 1e-5, 1e-9,
+                            constant_row=False)
+        kernel_ms, plain_ms = [], []
+        for dest, fn, clock in (
+                (kernel_ms, rolling_cuda.second_moments, batched_times_ms),
+                (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+                (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+                (kernel_ms, rolling_cuda.second_moments, batched_times_ms)):
+            dest += clock(lambda: fn(*args, WINDOW))
+        rows = low.shape[0]
+        bound, by, _, _ = moment_bound(rows, 240)
+        serve_launches = sum(launches[k]["tiled"]
+                             for k in ("cold", "coalesce", "new range"))
+        log(f"phase 11 second_moments [{rows}, 240] on the block's decoded "
+            f"bars: max_abs_err={err:.3e} vs plain; tiled "
+            f"{spread(kernel_ms)} ({bound / np.median(kernel_ms):.0%} of the "
+            f"{bound:.4f} ms bound by {by}); plain {spread(plain_ms)}; "
+            f"{serve_launches} launches for the 3 block builds ({card})")
+    finally:
+        for door in doors:
+            door.shutdown()
+        srv.close()
+    return {"launches": serve_launches,
+            "max_abs_err": err, "ms": float(np.median(kernel_ms)),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
+            "bound_by": by}
+
+
+def kind_name(card: str) -> str:
+    """The card's name from nvidia-smi's ``name, power.limit`` line."""
+    return card.split(",")[0].strip()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke needs an NVIDIA GPU")
@@ -2005,6 +2483,9 @@ def main() -> None:
     stream_line = streaming_path(bars, mask, tables, card)
     del bars, mask
 
+    # 11. the factor server at full width
+    serve_line = serve_path(tables, card)
+
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"
     tpu = "replication_of_minute_frequency_factor_tpu/ops/rolling_pallas.py:113"
@@ -2021,13 +2502,15 @@ def main() -> None:
         ("second_moments", "tiled", driver_launches["tiled"], max_err),
         ("second_moments_rowwise", "rowwise", other_launches["rowwise"],
          max_err_rows))] + [{
-        "name": "second_moments_stream_snapshot",
+        "name": name,
         "route": "cuda",
         "source": src,
         "replaces": tpu,
-        **stream_line,
+        **entry,
         "library_ms": None,
-    }]}), flush=True)
+    } for name, entry in (("second_moments_stream_snapshot", stream_line),
+                          ("second_moments_serve_block", serve_line))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

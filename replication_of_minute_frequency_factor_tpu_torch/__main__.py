@@ -19,9 +19,23 @@ it, both raise):
     # the runtime: torch, CUDA, the card, nvcc, the kernel build
     python -m replication_of_minute_frequency_factor_tpu_torch doctor
 
-The JAX package's ``serve`` and ``analyze`` subcommands and its
-``--backend``, ``--mesh-tickers``, ``--profile-dir`` and
-``--telemetry-dir`` flags wait for the slices that port what they drive.
+    # the long-lived factor server over HTTP (port 0 = ephemeral,
+    # printed on startup), or N in-process demo queries
+    python -m replication_of_minute_frequency_factor_tpu_torch serve \
+        --port 0
+    python -m replication_of_minute_frequency_factor_tpu_torch serve \
+        --demo 6 --synthetic-days 6 --synthetic-tickers 16
+
+    # observability demo: run the device pipeline over synthetic day
+    # files and write the telemetry bundle (manifest.json,
+    # metrics.jsonl, trace.json)
+    python -m replication_of_minute_frequency_factor_tpu_torch \
+        --telemetry-dir out/
+
+Still waiting for the slices that port what they drive: the
+``analyze`` subcommand, ``serve --fleet`` and ``serve --research``
+(ROADMAP Queue 1 item 7; both exit 2) with ``serve --research-dir``,
+and the ``--backend``, ``--mesh-tickers`` and ``--profile-dir`` flags.
 """
 
 from __future__ import annotations
@@ -64,6 +78,13 @@ def _add_compute(sub: "argparse._SubParsersAction") -> None:
                         "(a plain rerun only resumes past the cached max "
                         "date, so previously-failed days stay lost "
                         "without this)")
+    # SUPPRESS: only set when present, so it can't clobber the
+    # main-parser --telemetry-dir given before the subcommand
+    p.add_argument("--telemetry-dir", default=argparse.SUPPRESS,
+                   metavar="DIR",
+                   help="write run telemetry (manifest.json, "
+                        "metrics.jsonl, trace.json, attribution.json) "
+                        "into DIR and print an end-of-run summary")
     p.add_argument("--quiet", action="store_true")
     _add_device(p)
 
@@ -102,10 +123,166 @@ def _add_doctor(sub: "argparse._SubParsersAction") -> None:
         "config")
 
 
+def _add_serve(sub: "argparse._SubParsersAction") -> None:
+    p = sub.add_parser(
+        "serve", help="long-lived factor service: warm callables, "
+        "device-resident exposure cache, async batching queue; "
+        "HTTP/JSON on --port, or --demo N for an in-process smoke")
+    p.add_argument("--minute-dir", default=None,
+                   help="serve a directory of day files (default: a "
+                        "synthetic source)")
+    p.add_argument("--synthetic-days", type=int, default=32)
+    p.add_argument("--synthetic-tickers", type=int, default=64)
+    p.add_argument("--session", default=None, metavar="NAME",
+                   help="market session of the SYNTHETIC source "
+                        "(markets/registry.py: cn_ashare_240 us_390 "
+                        "hk_halfday crypto_1440; default cn_ashare_240)."
+                        " --minute-dir sources carry cn wall-clock "
+                        "stamps and ignore this.")
+    p.add_argument("--factors", default="all",
+                   help="comma-separated factor names, or 'all' (default)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8787,
+                   help="HTTP port (0 = ephemeral; printed on startup)")
+    p.add_argument("--cache-mb", type=int, default=256,
+                   help="device-byte budget of the exposure cache")
+    p.add_argument("--batch-window-ms", type=float, default=2.0,
+                   help="micro-batch collection window")
+    p.add_argument("--stream", action="store_true",
+                   help="also host the online intraday engine: POST "
+                        "/v1/ingest advances the streaming carry, query "
+                        "kind 'intraday' serves partial-day exposures")
+    p.add_argument("--stream-batches", default="1",
+                   help="comma-separated ingest micro-batch minute "
+                        "counts warmed at startup (default: 1)")
+    p.add_argument("--research", action="store_true",
+                   help="host the factor-discovery engine: not ported "
+                        "yet (exits 2)")
+    p.add_argument("--fleet", type=int, default=0, metavar="N",
+                   help="run N replicas over disjoint cards: not ported "
+                        "yet (N > 0 exits 2); 0 = a single server")
+    p.add_argument("--demo", type=int, default=None, metavar="N",
+                   help="answer N in-process queries (factors/IC/decile "
+                        "cycle), print a JSON summary, exit — no HTTP")
+    p.add_argument("--transport", choices=("edge", "legacy"),
+                   default="edge",
+                   help="front-door transport: the evented selectors "
+                        "loop with keep-alive/pipelining/binary-wire "
+                        "answers (edge, default) or the stdlib "
+                        "thread-per-connection server (legacy)")
+    p.add_argument("--telemetry-dir", default=argparse.SUPPRESS,
+                   metavar="DIR",
+                   help="write the run's telemetry bundle into DIR on "
+                        "shutdown")
+    _add_device(p)
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    import os
+    import time
+
+    from .models.registry import factor_names
+    from .serve import (FactorServer, MinuteDirSource, ServeConfig,
+                        SyntheticSource, serve_frontdoor)
+    from .telemetry import Telemetry, set_telemetry
+
+    if args.fleet > 0 or args.research:
+        what = "--fleet" if args.fleet > 0 else "--research"
+        print(f"serve {what} is not ported yet (ROADMAP Queue 1 item 7)",
+              file=sys.stderr)
+        return 2
+    all_names = factor_names()
+    names = (all_names if args.factors == "all"
+             else tuple(s.strip() for s in args.factors.split(",")
+                        if s.strip()))
+    unknown = [n for n in names if n not in all_names]
+    if unknown:
+        print(f"unknown factor(s): {', '.join(unknown)} "
+              "(see list-factors)", file=sys.stderr)
+        return 2
+    tel = set_telemetry(Telemetry())
+    if args.minute_dir:
+        source = MinuteDirSource(args.minute_dir)
+    else:
+        source = SyntheticSource(n_days=args.synthetic_days,
+                                 n_tickers=args.synthetic_tickers,
+                                 session=args.session)
+    scfg = ServeConfig(batch_window_s=args.batch_window_ms / 1e3,
+                       cache_bytes=args.cache_mb * 1024 * 1024,
+                       edge=args.transport)
+    telemetry_dir = getattr(args, "telemetry_dir", None)
+
+    def _write_bundle():
+        if telemetry_dir:
+            tel.write(telemetry_dir,
+                      manifest_extra={"run_kind": "serve"})
+            print(tel.summary(), file=sys.stderr)
+
+    stream_batches = tuple(int(s) for s in
+                           str(args.stream_batches).split(",")
+                           if s.strip())
+    with FactorServer(source, names=names, serve_cfg=scfg,
+                      telemetry=tel, stream=args.stream,
+                      stream_batches=stream_batches or (1,),
+                      device=args.device) as server:
+        if args.demo is not None:
+            client = server.client()
+            w = max(2, min(8, source.n_days))
+            n_ranges = max(1, source.n_days // w)
+            for i in range(args.demo):
+                start = (i % n_ranges) * w
+                kind = ("factors", "ic", "decile")[i % 3]
+                if kind == "factors":
+                    client.factors(start, start + w,
+                                   names=(names[i % len(names)],))
+                elif kind == "ic":
+                    client.ic(names[i % len(names)], start, start + w)
+                else:
+                    client.decile(names[i % len(names)], start, start + w)
+            reg = tel.registry
+            lat = reg.histogram_stats("serve.request_seconds",
+                                      kind="ic") or {}
+            _write_bundle()
+            print(json.dumps({
+                "demo_requests": args.demo,
+                "factors": len(names),
+                "days": source.n_days,
+                "tickers": source.n_tickers,
+                "dispatches": int(reg.counter_total("serve.dispatches")),
+                "cache_hits": int(reg.counter_value("serve.cache",
+                                                    outcome="hit")),
+                # the callables built (the JAX package counts XLA
+                # compiles here)
+                "compiles": int(reg.counter_value("serve.executables",
+                                                  outcome="miss")),
+                "ic_p50_s": lat.get("p50"),
+            }))
+            return 0
+        door = serve_frontdoor(server, host=args.host,
+                               port=args.port)
+        print(json.dumps({"serving": True, "host": args.host,
+                          "port": door.server_address[1],
+                          "transport": args.transport,
+                          "factors": len(names),
+                          "days": source.n_days,
+                          "device": str(server.device),
+                          "pid": os.getpid()}), flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            door.shutdown()
+            _write_bundle()
+    return 0
+
+
 def cmd_compute(args: argparse.Namespace) -> int:
     from .config import Config
     from .models.registry import factor_names
     from .pipeline import compute_exposures
+    from .telemetry import Telemetry, set_telemetry
 
     all_names = factor_names()
     names = (all_names if args.factors == "all"
@@ -125,18 +302,99 @@ def cmd_compute(args: argparse.Namespace) -> int:
         cfg.replicate_quirks = False
     if args.rolling_impl is not None:
         cfg.rolling_impl = args.rolling_impl
+    telemetry_dir = getattr(args, "telemetry_dir", None)
+    tel = None
+    if telemetry_dir:
+        # install as the process default so the data/wire layer
+        # counters land in the same stream the pipeline uses
+        tel = set_telemetry(Telemetry())
     table = compute_exposures(args.minute_dir, names,
                               cache_path=args.cache, cfg=cfg,
                               progress=not args.quiet,
                               retry_failed=args.retry_failed,
+                              telemetry=tel,
                               device=args.device)  # saves cache
     n_days = len(set(map(str, table.columns["date"])))
-    print(json.dumps({
+    out = {
         "rows": len(table), "days": n_days,
         "factors": len(table.factor_names),
         "failed_days": len(table.failures) if table.failures else 0,
         "cache": args.cache,
-    }))
+    }
+    if tel is not None:
+        out["telemetry"] = _write_telemetry(tel, telemetry_dir, cfg, table,
+                                            "compute")
+    print(json.dumps(out))
+    return 0
+
+
+def _write_telemetry(tel, telemetry_dir: str, cfg, table,
+                     run_kind: str) -> dict:
+    """The run's bundle plus ``attribution.json`` (stage seconds and the
+    wall-clock reconciliation) into ``telemetry_dir``; prints the
+    end-of-run summary to stderr and returns ``{artifact: path}``."""
+    import os
+
+    from .telemetry.attribution import build_report, write_report
+
+    paths = tel.write(telemetry_dir, cfg=cfg,
+                      manifest_extra={"run_kind": run_kind})
+    report = build_report(table.timings,
+                          reconciliation=getattr(table, "reconciliation",
+                                                 None),
+                          tolerance=cfg.attribution_tolerance)
+    paths["attribution"] = write_report(
+        os.path.join(telemetry_dir, "attribution.json"), report)
+    print(tel.summary(), file=sys.stderr)
+    return paths
+
+
+def run_synthetic_pipeline(telemetry_dir: str, n_days: int = 3,
+                           n_codes: int = 16, device=None) -> int:
+    """Zero-setup observability demo: synthesize a few day files, run the
+    REAL device pipeline over them (grid + wire-encode + factor graph +
+    cache-shaped fetch), and write the telemetry bundle plus an
+    attribution report into ``telemetry_dir``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from .config import Config
+    from .data.synthetic import synth_day
+    from .pipeline import compute_exposures
+    from .telemetry import Telemetry, set_telemetry
+
+    tel = set_telemetry(Telemetry())
+    rng = np.random.default_rng(0)
+    names = ("vol_return1min", "mmt_am", "liq_openvol")
+    with tempfile.TemporaryDirectory() as md:
+        for i in range(n_days):
+            ds = str(np.datetime64("2024-01-02") + i)
+            cols = synth_day(rng, n_codes=n_codes, date=ds,
+                             missing_prob=0.05)
+            arrays = {"code": pa.array([str(c) for c in cols["code"]]),
+                      "time": pa.array(cols["time"])}
+            for k in ("open", "high", "low", "close", "volume"):
+                arrays[k] = pa.array(cols[k])
+            pq.write_table(pa.table(arrays),
+                           os.path.join(md, ds.replace("-", "")
+                                        + ".parquet"))
+        cfg = Config.from_env()
+        cfg.minute_dir = md
+        cfg.days_per_batch = 2
+        table = compute_exposures(md, names, cfg=cfg, progress=False,
+                                  telemetry=tel, device=device)
+    paths = _write_telemetry(tel, telemetry_dir, cfg, table,
+                             "synthetic_pipeline")
+    rec = table.reconciliation
+    print(json.dumps({"rows": len(table),
+                      "days": n_days, "factors": len(names),
+                      "reconciliation_ok": rec["ok"],
+                      "unattributed_s": rec["unattributed_s"],
+                      "telemetry": paths}))
     return 0
 
 
@@ -265,15 +523,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         prog="python -m replication_of_minute_frequency_factor_tpu_torch",
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    sub = ap.add_subparsers(dest="cmd", required=True)
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="with no subcommand: run the synthetic demo "
+                         "pipeline and write its telemetry bundle into "
+                         "DIR (with `compute`, pass the flag after the "
+                         "subcommand)")
+    ap.add_argument("--device", dest="demo_device", default=None,
+                    help="with --telemetry-dir and no subcommand: the "
+                         "torch device the demo runs on (default: cuda, "
+                         "which must be present; 'cpu' runs on the CPU)")
+    sub = ap.add_subparsers(dest="cmd", required=False)
     _add_compute(sub)
     _add_evaluate(sub)
     _add_list(sub)
     _add_doctor(sub)
+    _add_serve(sub)
     args = ap.parse_args(argv)
+    if args.cmd is None:
+        if args.telemetry_dir:
+            return run_synthetic_pipeline(args.telemetry_dir,
+                                          device=args.demo_device)
+        ap.error("a subcommand is required (or --telemetry-dir DIR for "
+                 "the synthetic telemetry demo)")
     return {"compute": cmd_compute, "evaluate": cmd_evaluate,
             "list-factors": cmd_list_factors,
-            "doctor": cmd_doctor}[args.cmd](args)
+            "doctor": cmd_doctor, "serve": cmd_serve}[args.cmd](args)
 
 
 if __name__ == "__main__":

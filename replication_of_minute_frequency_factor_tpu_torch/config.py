@@ -61,6 +61,11 @@ class Config:
     #: fewer bytes than f32 bars on typical data; falls back to f32 bars
     #: per batch when unrepresentable)
     wire_transfer: bool = True
+    #: runtime lock assertions (telemetry/lockcheck.py): arm the declared
+    #: lock contracts so a mutation of a guarded attribute without its
+    #: owning lock raises LockAssertionError and counts
+    #: lockcheck.violations; MFF_LOCK_ASSERT=1 is the env override
+    debug_lock_assert: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -277,14 +277,15 @@ class StreamEngine:
                     time.perf_counter() - t0, kind="scan")
         tel.counter("stream.updates", kind="scan")
         tel.counter("stream.bars", n_bars)
-        # the scan's useful-lane occupancy (tel.meshplane.record_occupancy,
-        # boundary stream.scan) waits for the mesh plane (ROADMAP Queue 1
-        # item 4)
+        # useful-lane fraction of the scan micro-batch
+        tel.meshplane.record_occupancy(
+            n_bars / (b * t) if b * t else 0.0, boundary="stream.scan")
         self.minutes += b
         self._last_ingest_t = time.monotonic()
         self._note_carry()
-        # the HBM watermark at the ingest boundary (tel.hbm.sample) waits
-        # for the ops plane (ROADMAP Queue 1 item 4)
+        # the memory watermark at the ingest boundary (rate-limited inside
+        # the sampler, never raises)
+        tel.hbm.sample("stream.ingest")
 
     def ingest_cohort(self, rows: np.ndarray, idx: np.ndarray) -> None:
         """Scatter ``K`` tickers' bars at the current minute (host arrays
@@ -314,12 +315,12 @@ class StreamEngine:
                     time.perf_counter() - t0, kind="cohort")
         tel.counter("stream.updates", kind="cohort")
         tel.counter("stream.bars", n_real)
-        # the cohort's real-row occupancy (tel.meshplane.record_occupancy,
-        # boundary stream.cohort) waits for the mesh plane (ROADMAP Queue
-        # 1 item 4)
+        # real rows per K-row scatter: the cohort callable pays for K
+        # lanes regardless, so a mostly padded feed shows here
+        tel.meshplane.record_occupancy(n_real / k if k else 0.0,
+                                       boundary="stream.cohort")
         self._last_ingest_t = time.monotonic()
-        # tel.hbm.sample("stream.ingest") waits for the ops plane (ROADMAP
-        # Queue 1 item 4)
+        tel.hbm.sample("stream.ingest")
 
     def advance(self) -> None:
         """Close the current minute (the cohort path's minute boundary)."""
@@ -346,8 +347,7 @@ class StreamEngine:
             tel.counter("stream.snapshots")
         tel.counter("stream.finalize_snapshots",
                     impl=self.finalize_impl_resolved)
-        # tel.hbm.sample("stream.snapshot") waits for the ops plane
-        # (ROADMAP Queue 1 item 4)
+        tel.hbm.sample("stream.snapshot")
         return out
 
     def snapshot(self):

@@ -1,15 +1,20 @@
 """Wall-clock reconciliation: the sum of a run's timed stages against its
 wall time, with the unattributed residual explicit.
 
-The port's copy of ``reconcile`` from the JAX package's
-``telemetry/attribution.py`` (pure host arithmetic). The trace
-post-processing and compile telemetry there read XLA artifacts and wait
-for the port's telemetry plane.
+The port's copy of ``reconcile``, ``build_report`` and ``write_report``
+from the JAX package's ``telemetry/attribution.py`` (pure host
+arithmetic). The report carries no ``trace`` block: the profiler trace
+capture and its post-processing (``TraceCapture``, the JAX package's
+``summarize_trace_dir``) are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Dict, Optional
+
+#: attribution report schema (the JAX package's ``REPORT_SCHEMA``)
+REPORT_SCHEMA = 1
 
 #: default fraction of wall time allowed to stay unattributed
 DEFAULT_TOLERANCE = 0.10
@@ -54,3 +59,27 @@ def reconcile(wall_s: float, stages: Optional[Dict[str, float]],
         "ok": ok,
     }
     return block
+
+
+def build_report(stages: Optional[Dict[str, float]],
+                 wall_s: Optional[float] = None,
+                 reconciliation: Optional[dict] = None,
+                 tolerance: float = DEFAULT_TOLERANCE) -> dict:
+    """Attribution report: the stage seconds and the reconciliation
+    block (computed from ``wall_s`` unless a precomputed one is
+    passed)."""
+    if reconciliation is None:
+        reconciliation = reconcile(wall_s or 0.0, stages, tolerance)
+    return {
+        "schema": REPORT_SCHEMA,
+        "stages_s": {k: round(float(v), 3)
+                     for k, v in (stages or {}).items()
+                     if isinstance(v, (int, float))},
+        "reconciliation": reconciliation,
+    }
+
+
+def write_report(path: str, report: dict) -> str:
+    with open(path, "w") as fh:
+        json.dump(report, fh, indent=1)
+    return path

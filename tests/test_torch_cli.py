@@ -162,10 +162,11 @@ def test_the_cli_refuses_the_cpu_unless_asked(workspace, capsys,
     ["compute", "--minute-dir", "d", "--cache", "c", "--backend", "numpy"],
     ["compute", "--minute-dir", "d", "--cache", "c", "--mesh-tickers", "2"],
     ["compute", "--minute-dir", "d", "--cache", "c", "--profile-dir", "p"],
-    ["compute", "--minute-dir", "d", "--cache", "c", "--telemetry-dir", "t"],
+    ["--profile-dir", "p"],
     ["compute", "--minute-dir", "d", "--cache", "c", "--rolling-impl",
      "pallas"],
-    ["serve", "--demo", "1"],
+    ["serve", "--demo", "1", "--backend", "numpy"],
+    ["serve", "--demo", "1", "--research-dir", "r"],
     ["analyze"],
     [],
 ])
@@ -173,3 +174,33 @@ def test_unported_flags_and_subcommands_are_rejected(argv, capsys):
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code == 2
+
+
+def test_serve_fleet_and_research_exit_2_naming_the_roadmap(capsys):
+    """``serve --fleet N>0`` and ``serve --research`` are not ported:
+    each exits 2 and says which ROADMAP item they wait for."""
+    for argv in (["serve", "--fleet", "2", "--device", "cpu"],
+                 ["serve", "--research", "--device", "cpu"]):
+        assert main(argv) == 2
+        assert "ROADMAP Queue 1 item 7" in capsys.readouterr().err
+
+
+def test_compute_telemetry_dir_writes_the_bundle(workspace, capsys):
+    """``compute --telemetry-dir DIR`` writes the JAX package's bundle
+    (manifest, metrics stream, trace) plus attribution.json, and the JAX
+    package's validator accepts it."""
+    from replication_of_minute_frequency_factor_tpu.telemetry.validate import (
+        validate_dir)
+    kline, _pv, cache, tmp = workspace
+    out_dir = os.path.join(str(tmp), "tel")
+    assert main(["compute", "--minute-dir", kline, "--cache", cache,
+                 "--factors", "mmt_am", "--quiet", "--device", "cpu",
+                 "--telemetry-dir", out_dir]) == 0
+    out = _last_json(capsys)
+    assert set(out["telemetry"]) == {"manifest", "metrics", "trace",
+                                     "attribution"}
+    assert sorted(os.listdir(out_dir)) == [
+        "attribution.json", "manifest.json", "metrics.jsonl", "trace.json"]
+    assert validate_dir(out_dir)["ok"]
+    with open(os.path.join(out_dir, "manifest.json")) as fh:
+        assert json.load(fh)["run_kind"] == "compute"

@@ -409,3 +409,121 @@ def test_packed_side_outputs_on_the_card():
         np.testing.assert_array_equal(got[:, col], host[:, col])
     np.testing.assert_allclose(got[:, 5:7], host[:, 5:7], rtol=1e-5,
                                atol=1e-7)
+
+
+def _served(device, names, n_days=4, n_tickers=64):
+    """All of ``names`` over days [0, n_days) of a seeded source, served
+    on ``device``: ``(source, answer, mmt_ols_qrs IC answer, the cached
+    block on the CPU, server telemetry)``."""
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, SyntheticSource)
+    src = SyntheticSource(n_days=n_days, n_tickers=n_tickers, seed=11)
+    tel = Telemetry()
+    with FactorServer(src, names=names, telemetry=tel, device=device,
+                      rolling_impl="cuda") as srv:
+        ans = srv.client(600).factors(0, n_days)
+        ic = srv.client(600).ic("mmt_ols_qrs", 0, n_days)
+        block = {k: v.cpu() for k, v in srv.cache.get((0, n_days)).items()}
+    return src, ans, ic, block, tel
+
+
+@pytest.mark.cuda
+def test_served_block_on_the_card_matches_the_cpu_server():
+    """A block served on the card: one tiled launch, the exposures
+    bitwise ``compute_batch`` on the card over the block's decoded bars,
+    within tests/test_parity.py's tolerances of the same block served on
+    the CPU (chip_smoke's comparator); the card's IC within
+    tests/test_torch_eval.py's IC tolerance of the IC graph run on the CPU
+    over the card's block."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        engine)
+    smoke = _smoke()
+    names = factor_names()
+    before = dict(rolling_cuda.launches)
+    src, got, ic, block, tel = _served("cuda", names)
+    assert _launched(before) == {"tiled": 1, "rowwise": 0}
+    _, want, _, _, _ = _served("cpu", names)
+    assert tel.registry.counter_total("serve.dispatches") == 1
+    a = torch.from_numpy(np.stack([np.asarray(got["exposures"][n],
+                                              np.float32) for n in names]))
+    b = torch.from_numpy(np.stack([np.asarray(want["exposures"][n],
+                                              np.float32) for n in names]))
+    bars, mask = src.slab(0, 4)
+    buf, spec = wire.pack_arrays(wire.encode(bars, mask).arrays)
+    dbars, dmask = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(),
+                                            spec))
+    batch = compute_batch(dbars, dmask, rolling_impl="cuda").cpu()
+    nan = torch.isnan(a)
+    assert torch.equal(nan, torch.isnan(batch))
+    assert same_bits(torch.where(nan, 0.0, a), torch.where(nan, 0.0, batch))
+    cbars, cmask = (t.cpu() for t in (dbars, dmask))
+    ctx = DayContext(torch.where(cmask[..., None], cbars, 0.0), cmask,
+                     rolling_impl="torch")
+    smoke.compare_blocks("serve card-vs-cpu", names, a, b,
+                         smoke.parity_tables(), ctx.beta_moments()[:3],
+                         noisy=True, pdf_ctx=ctx)
+    row = names.index("mmt_ols_qrs")
+    cpu_ic = engine._ic_fn(block["exposures"], block["close"],
+                           block["valid"], row, 1)
+    for key, w in zip(("ic", "rank_ic"), cpu_ic):
+        g = np.asarray(ic[key], np.float64)
+        w = w.double().numpy()
+        assert np.array_equal(np.isnan(g), np.isnan(w))
+        ok = ~np.isnan(w)
+        np.testing.assert_allclose(g[ok], w[ok], rtol=2e-5,
+                                   atol=4 * float(np.finfo(np.float32).eps))
+
+
+@pytest.mark.cuda
+def test_exposure_cache_eviction_frees_card_memory():
+    """Torch cannot delete a tensor under live references; the cache drops
+    its own, and nothing else holds a served block, so
+    ``torch.cuda.memory_allocated`` falls by the evicted block's bytes."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        DeviceExposureCache)
+    from replication_of_minute_frequency_factor_tpu_torch.serve.expcache \
+        import entry_nbytes
+
+    def block():
+        return {"exposures": torch.ones(58, 8, 5000, device="cuda"),
+                "close": torch.ones(8, 5000, device="cuda"),
+                "valid": torch.ones(8, 5000, dtype=torch.bool,
+                                    device="cuda")}
+
+    torch.cuda.synchronize()
+    first = block()
+    nbytes = entry_nbytes(first)
+    cache = DeviceExposureCache(int(nbytes * 1.5), telemetry=Telemetry())
+    cache.put("a", first)
+    del first
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cache.put("b", block())  # evicts "a"
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert cache.get("a") is None and len(cache) == 1
+    # the new block is allocated, the evicted one freed: net about zero
+    assert after - held < nbytes // 2
+    cache.clear()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= held - nbytes + 4096
+
+
+@pytest.mark.cuda
+def test_hbm_sampler_is_available_on_the_card():
+    """On the card the sampler reads the caching allocator: available,
+    the current bytes and a peak that is ``max_memory_allocated``'s."""
+    _card()
+    tel = Telemetry()
+    keep = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    out = tel.hbm.configure(device="cuda").sample("test", force=True)
+    assert out["available"] is True and out["source"] == "memory_stats"
+    dev = f"cuda:{torch.cuda.current_device()}"
+    assert out["devices"][dev]["bytes_in_use"] \
+        == torch.cuda.memory_allocated()
+    assert out["devices"][dev]["peak_bytes"] \
+        == torch.cuda.max_memory_allocated()
+    del keep

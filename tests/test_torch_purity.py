@@ -66,7 +66,13 @@ def test_importing_every_port_module_loads_no_jax():
                 "frames", "eval_ops", "plotting", "factor", "minfreq",
                 "__main__", "data.result_wire", "telemetry.factorplane",
                 "ops.incremental", "stream.carry", "stream.fastpath",
-                "stream.engine", "serve.executables", "sessions"):
+                "stream.engine", "serve.executables", "sessions",
+                "serve", "serve.engine", "serve.expcache", "serve.service",
+                "serve.source", "serve.http", "serve.edge",
+                "serve.wireclient", "telemetry.lockcheck", "telemetry.spans",
+                "telemetry.sink", "telemetry.manifest", "telemetry.opsplane",
+                "telemetry.slo", "telemetry.timeline",
+                "telemetry.meshplane"):
         assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
     # pyarrow loads only inside the functions that read and write files,
@@ -189,3 +195,35 @@ def test_kernel_source_ships_and_builds_into_an_ignored_directory():
     assert kernels.library_path("rolling_moments").parent == \
         REPO / "build" / "kernels"
     assert "/build/" in (REPO / ".gitignore").read_text().splitlines()
+
+
+def test_the_server_refuses_the_cpu_unless_asked(monkeypatch):
+    """``FactorServer``, ``ServeEngine`` and the CLI's ``serve`` run on
+    the card unless ``device='cpu'`` is passed: without a card they
+    raise, never fall back."""
+    from replication_of_minute_frequency_factor_tpu_torch.__main__ import (
+        main)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, SyntheticSource)
+    from replication_of_minute_frequency_factor_tpu_torch.serve.engine import (
+        ServeEngine)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = SyntheticSource(n_days=2, n_tickers=4, seed=0)
+    names = ("mmt_am",)
+    for make in (lambda: FactorServer(src, names=names, start=False),
+                 lambda: ServeEngine(names)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FactorServer(src, names=names, start=False, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["serve", "--demo", "1", "--synthetic-days", "2",
+              "--synthetic-tickers", "4", "--factors", "mmt_am"])
+    eng = ServeEngine(names, device="cpu")
+    block = eng.build_block(*src.slab(0, 2))
+    assert {t.device.type for t in block.values()} == {"cpu"}
+    with FactorServer(src, names=names, device="cpu") as srv:
+        assert srv.device.type == "cpu"
+        assert srv.stream_engine is None
+        assert srv.health()["replica"]["devices"] == ["cpu"]
