@@ -117,6 +117,27 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    the cold build, cache-hit answers, request walls by kind in process and
    over the edge, a warm ``build_block``'s enqueue and fetch apart, and the
    tiled kernel at the block's ``[40000, 240]`` against its plain version.
+12. factor discovery at full width: ``DiscoveryEngine`` on
+   ``synth_batch(512, 16)`` (16 days x 512 tickers on ``cn_ashare_240``,
+   horizon-1 forward returns, the default skeleton) at populations 512 and
+   2048 for 6 generations and 8192 for 3, each warmed first: candidates/s,
+   generation walls p50/p99, one host sync a generation, nothing built in
+   the loop, no second-moment launch, peak memory; one pop-512 generation
+   under ``torch.profiler`` and through a dispatch counter (device ops and
+   bytes a candidate). Held: two same-seed evolves bitwise, the device
+   top-k against the host argsort, ``generation_stats`` on a 512-candidate
+   population of bounded ops card against CPU (NaN positions identical,
+   fitness/IC within the CPU tests' tolerance, rank IC and spread likewise
+   where the card and the CPU order every date's exposures alike), the
+   rolling std/corr card against CPU off their degenerate edge with the
+   edge lanes counted. Then a research server over phase 11's source (all
+   58, ``rolling_impl='cuda'``, a temporary ``research_dir``): one
+   discovery job (one sync a generation, nothing built in the loop, its
+   record written, the name listed), the next query's rebuild (one tiled
+   launch) equal to ``make_kernel`` on the block's decoded bars, ``GET
+   /v1/factors`` and ``POST /v1/discover`` over the edge as in process,
+   and a second server on the same directory reloading the record and
+   answering the same bits.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel and path (the tiled kernel on the host driver's batches, on the
@@ -2278,6 +2299,376 @@ def serve_path(tables, card: str) -> dict:
             "bound_by": by}
 
 
+#: phase 12: the discovery slab (tickers x days on cn_ashare_240, the JAX
+#: package's own discovery slab) and its seed; the population levels with
+#: the generations each runs; the fixed population held card against CPU;
+#: the server's discovery job (days [0, 8) of phase 11's source)
+DISC_TICKERS, DISC_DAYS, DISC_SEED = 512, 16, 2024
+DISC_LEVELS = ((512, 6), (2048, 6), (8192, 3))
+DISC_HOLD_POP = 512
+DISC_JOB = {"generations": 4, "pop": 128, "seed": 7}
+#: the interpreter tolerance the CPU tests state (tests/test_torch_search.py,
+#: the JAX package's tests/test_search.py:38)
+SEARCH_RTOL, SEARCH_ATOL = 2e-4, 1e-6
+
+
+def same_discovery(a, b) -> bool:
+    """Two ``DiscoveryResult``s name the same genome with the same history
+    and stats, bit for bit."""
+    return (np.array_equal(a.genome, b.genome)
+            and np.array_equal(np.asarray(a.history), np.asarray(b.history))
+            and same_values(np.array([a.fitness, a.mean_ic, a.mean_rank_ic,
+                                      a.spread], np.float32),
+                            np.array([b.fitness, b.mean_ic, b.mean_rank_ic,
+                                      b.spread], np.float32)))
+
+
+def stats_and_exposures(genomes, data, group_num=5):
+    """``research.fitness.generation_stats``'s body chunk by chunk,
+    keeping each chunk's exposures: ``([P, 4]`` stats, ``[P, D, T]``
+    exposures) on the host."""
+    from replication_of_minute_frequency_factor_tpu_torch import search
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        fitness)
+
+    skel = search.DEFAULT_SKELETON
+    chunk = search.auto_chunk(tuple(data.mask.shape))
+    stats, vals = [], []
+    for a, b in search.chunk_bounds(len(genomes), chunk):
+        plan, = search.upload_plans([search.slot_groups(genomes[a:b], skel)],
+                                    data.feats.device)
+        v = search.evaluate_plan(plan, data.feats, data.mask, skel, b - a)
+        stats.append(fitness._candidate_stats(v, data.fwd_ret,
+                                              data.fwd_valid, group_num))
+        vals.append(v)
+    return torch.cat(stats).cpu().numpy(), torch.cat(vals).cpu().numpy()
+
+
+#: the rolling ops' tolerances off their degenerate edge (the JAX
+#: package's tests/test_search.py:147 and :179, which tests/test_torch_search.py
+#: states): std within ROLL; corr within CORR on lanes with |r| > CORR_FAR
+ROLL_RTOL, ROLL_ATOL = 2e-3, 2e-3
+CORR_RTOL, CORR_ATOL, CORR_FAR = 0.05, 5e-3, 1e-3
+
+
+def rolling_ops_card_vs_cpu(data, cpu_data, card: str) -> None:
+    """The search's rolling std (windows 5, 30) and corr (30) on the card
+    against the CPU, on the slab's close and volume: the card's prefix sum
+    is ``torch.cumsum``, the CPU's XLA's association, so the two differ by
+    rounding, which moves only degenerate windows. NaN positions and
+    empty windows (0 in both) must agree everywhere; the rest is held off
+    the degenerate edge (one valid bar for the std; |r| <= CORR_FAR on the
+    CPU for the corr), and the edge lanes are counted."""
+    from replication_of_minute_frequency_factor_tpu_torch import search
+
+    def on(d):
+        x, v, m = d.feats[3][None], d.feats[4][None], d.mask
+        return x, v, m
+
+    (x, v, m), (cx, cv, cm) = on(data), on(cpu_data)
+    counts = {w: search._windowed_sum(cm.to(torch.float32), w)[None].numpy()
+              for w in (search.ROLL_FAST, search.ROLL_SLOW)}
+    for label, got, want, n, far_of in (
+            ("rstd5", search.rolling_std(x, m, search.ROLL_FAST),
+             search.rolling_std(cx, cm, search.ROLL_FAST),
+             counts[search.ROLL_FAST], lambda w, n: n > 1.5),
+            ("rstd30", search.rolling_std(x, m, search.ROLL_SLOW),
+             search.rolling_std(cx, cm, search.ROLL_SLOW),
+             counts[search.ROLL_SLOW], lambda w, n: n > 1.5),
+            ("rcorr30", search.rolling_corr(x, v, m, search.ROLL_SLOW),
+             search.rolling_corr(cx, cv, cm, search.ROLL_SLOW),
+             counts[search.ROLL_SLOW],
+             lambda w, n: np.abs(w) > CORR_FAR)):
+        got, want = got.cpu().numpy(), want.numpy()
+        if not np.array_equal(np.isnan(got), np.isnan(want)):
+            fail(f"phase 12 {label}: NaN positions differ card vs CPU")
+        empty = n < 0.5
+        if not (np.all(got[empty] == 0) and np.all(want[empty] == 0)):
+            fail(f"phase 12 {label}: an empty window is not 0")
+        far = far_of(want, n) & ~np.isnan(want)
+        rtol, atol = ((CORR_RTOL, CORR_ATOL) if label == "rcorr30"
+                      else (ROLL_RTOL, ROLL_ATOL))
+        if not np.allclose(got[far], want[far], rtol=rtol, atol=atol):
+            fail(f"phase 12 {label}: card vs CPU past rtol {rtol} / atol "
+                 f"{atol} off the degenerate edge")
+        edge = ~far & ~empty & ~np.isnan(want)
+        log(f"phase 12 {label} on the slab's close{'/volume' if 'corr' in label else ''} "
+            f"({card}): NaN positions identical, {int(empty.sum())} empty "
+            f"windows 0 in both, {int(far.sum())} lanes within rtol {rtol} "
+            f"/ atol {atol} of the CPU; {int(edge.sum())} edge lanes, "
+            f"{int((got[edge] != want[edge]).sum())} of them differ")
+
+
+def device_traffic(fn):
+    """Run ``fn()`` counting the device ops it dispatches (views excluded)
+    and the bytes they move: every device tensor an op reads or writes
+    counted once per op, at the smaller of its logical size and its
+    storage (an expanded tensor is read once). Returns ``(ops, bytes)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Traffic(TorchDispatchMode):
+        ops, nbytes = 0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                seen = {}
+                for t in tree_leaves((args, kwargs, out)):
+                    if isinstance(t, torch.Tensor) and t.is_cuda:
+                        seen[id(t)] = min(
+                            t.numel() * t.element_size(),
+                            t.untyped_storage().nbytes())
+                if seen:
+                    Traffic.ops += 1
+                    Traffic.nbytes += sum(seen.values())
+            return out
+
+    with Traffic():
+        fn()
+    return Traffic.ops, Traffic.nbytes
+
+
+def discovery_path(card: str) -> None:
+    """Phase 12: factor discovery at full width on the card — the engine
+    at three population levels, its holds, and the research server; see
+    the module docstring."""
+    import tempfile
+    import urllib.request
+
+    from replication_of_minute_frequency_factor_tpu_torch import search
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        DayContext, factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        DiscoveryEngine, fitness, host_forward_returns, registry)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, ServeConfig, SyntheticSource, serve_frontdoor)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry)
+
+    log(f"phase 12 card: {card}")
+    t0 = time.perf_counter()
+    bars, mask = synth_batch(DISC_TICKERS, DISC_DAYS, seed=DISC_SEED)
+    fwd_ret, fwd_valid = host_forward_returns(bars, mask, horizon=1)
+    tel = Telemetry()
+    eng = DiscoveryEngine(telemetry=tel, device="cuda")
+    data = eng.prepare(bars, mask, fwd_ret, fwd_valid)
+    torch.cuda.synchronize()
+    chunk = search.auto_chunk(data.shape)
+    log(f"phase 12 input: synth_day x {DISC_DAYS} days x {DISC_TICKERS} "
+        f"tickers (seed {DISC_SEED}, cn_ashare_240) -> bars "
+        f"{bars.shape}, forward returns at horizon 1, prepared in "
+        f"{time.perf_counter() - t0:.2f} s; default skeleton, chunks of "
+        f"{chunk} candidates")
+
+    # 12a. the engine at each population level, each warmed first
+    for pop, gens in DISC_LEVELS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rolling_cuda.reset_launches()
+        t0 = time.perf_counter()
+        eng.warmup(data, pop)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        res = eng.evolve(data, pop=pop, generations=gens,
+                         rng=np.random.default_rng(pop))
+        peak = torch.cuda.max_memory_allocated()
+        walls = np.asarray(res.gen_walls_s) * 1e3
+        if res.syncs_per_generation != 1.0:
+            fail(f"phase 12 pop {pop}: {res.syncs_per_generation} host "
+                 "syncs a generation, expected 1.0")
+        if res.compiles_during_loop != 0:
+            fail(f"phase 12 pop {pop}: {res.compiles_during_loop} callables "
+                 "built during the generation loop")
+        if not (np.isfinite(res.fitness) and res.fitness > 0):
+            fail(f"phase 12 pop {pop}: best fitness {res.fitness}")
+        if dict(rolling_cuda.launches) != {"tiled": 0, "rowwise": 0}:
+            fail(f"phase 12 pop {pop}: the search launched "
+                 f"{dict(rolling_cuda.launches)}")
+        log(f"phase 12 pop {pop} x {gens} generations ({card}): "
+            f"{eng.last_candidates_per_s:.1f} candidates/s, generation wall "
+            f"p50 {np.percentile(walls, 50):.1f} ms p99 "
+            f"{np.percentile(walls, 99):.1f} ms (walls "
+            f"{[round(float(w), 1) for w in walls]}), syncs_per_generation "
+            f"{res.syncs_per_generation}, compiles_during_loop "
+            f"{res.compiles_during_loop}, peak {peak / 2**30:.3f} GiB "
+            f"({peak} B) allocated, warmup {warm_s:.2f} s; best "
+            f"{search.describe(res.genome)} |IC| {res.fitness:.6f} "
+            f"rank IC {res.mean_rank_ic:.6f} spread {res.spread:.6g}")
+
+    # where one generation's wall goes (pop 512, warm)
+    exe = eng._generation_exe(data, 512, eng._n_elite(512, 0.1))
+    g = search.random_population(np.random.default_rng(14), 512)
+    profile_main_path("discovery generation pop 512", lambda: exe(
+        g, *data.device_args)[0].cpu(), card)
+    ops, nbytes = device_traffic(lambda: exe(g, *data.device_args))
+    torch.cuda.synchronize()
+    log(f"phase 12 per candidate at pop 512 (chunks of {chunk}): "
+        f"{ops / 512:.1f} device ops and {nbytes / 512 / 1e6:.1f} MB read or "
+        f"written (each tensor once per op), against "
+        f"{data.feats[0].numel() * 4 / 1e6:.2f} MB of one f32 series "
+        f"[{', '.join(map(str, data.shape))}]; the bytes alone bound a "
+        f"candidate at {nbytes / 512 / HBM_BYTES_PER_S * 1e3:.3f} ms on the "
+        f"card's {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    # 12b. holds on the card: same-seed determinism, the device top-k
+    pop = DISC_HOLD_POP
+    a = eng.evolve(data, pop=pop, generations=2, rng=np.random.default_rng(11))
+    b = eng.evolve(data, pop=pop, generations=2, rng=np.random.default_rng(11))
+    if not same_discovery(a, b):
+        fail("phase 12: two evolve runs with the same seed differ")
+    n_elite = eng._n_elite(pop, 0.1)
+    exe = eng._generation_exe(data, pop, n_elite)
+    g = search.random_population(np.random.default_rng(12), pop)
+    stats, top_vals, top_idx = exe(g, *data.device_args)
+    fits = np.nan_to_num(stats.cpu().numpy()[:, 0], nan=-1.0)
+    host = np.argsort(-fits, kind="stable")[:n_elite]
+    if not (np.array_equal(top_idx.cpu().numpy(), host)
+            and np.array_equal(top_vals.cpu().numpy(), fits[host])):
+        fail("phase 12: the device top-k is not the host argsort's first "
+             f"{n_elite}")
+    log(f"phase 12 holds: two pop-{pop} evolves with seed 11 give the same "
+        f"genome, history and stats bitwise; the device top-k of a pop-{pop} "
+        f"generation is the host argsort's first {n_elite}")
+
+    # 12c. the card's generation_stats against the port on the CPU
+    g = cases.bounded_population(13, DISC_HOLD_POP, search.DEFAULT_SKELETON)
+    card_stats = fitness.generation_stats(g, *data.device_args,
+                                          search.DEFAULT_SKELETON).cpu().numpy()
+    _, card_vals = stats_and_exposures(g, data)
+    t0 = time.perf_counter()
+    cpu_eng = DiscoveryEngine(telemetry=Telemetry(), device="cpu")
+    cpu_data = cpu_eng.prepare(bars, mask, fwd_ret, fwd_valid)
+    cpu_stats, cpu_vals = stats_and_exposures(g, cpu_data)
+    cpu_s = time.perf_counter() - t0
+    order = cases.same_order(card_vals, cpu_vals,
+                             np.isfinite(cpu_vals) & fwd_valid)
+    if not np.array_equal(np.isnan(card_stats), np.isnan(cpu_stats)):
+        fail("phase 12: generation_stats NaN positions differ card vs CPU")
+    if order.sum() <= DISC_HOLD_POP // 2:
+        fail(f"phase 12: only {int(order.sum())} candidates order their "
+             "exposures alike card vs CPU")
+    for cols, rows in (((0, 1), slice(None)), ((2, 3), order)):
+        c, w = card_stats[rows][:, cols], cpu_stats[rows][:, cols]
+        ok = np.isnan(w) | (np.abs(c - w)
+                            <= SEARCH_ATOL + SEARCH_RTOL * np.abs(w))
+        if not ok.all():
+            fail(f"phase 12: generation_stats columns {cols} differ card vs "
+                 f"CPU past rtol {SEARCH_RTOL} / atol {SEARCH_ATOL}: "
+                 f"{int((~ok).sum())} values")
+    err = np.nanmax(np.abs(card_stats - cpu_stats))
+    log(f"phase 12 generation_stats, {DISC_HOLD_POP} candidates over the "
+        f"ops of bounded conditioning: card vs CPU NaN positions identical, "
+        f"fitness/IC within rtol {SEARCH_RTOL} / atol {SEARCH_ATOL}, rank IC "
+        f"and spread likewise on the {int(order.sum())} candidates whose card "
+        f"and CPU exposures order every date alike ({int((~order).sum())} "
+        f"do not); max abs diff {err:.3g}; the CPU took {cpu_s:.1f} s")
+    del card_vals, cpu_vals
+    rolling_ops_card_vs_cpu(data, cpu_data, card)
+    del cpu_data
+    del data, eng
+
+    # 12d. the research server over phase 11's source
+    names = factor_names()
+    src = SyntheticSource(n_days=SERVE_DAYS, n_tickers=TICKERS, seed=0)
+    d1 = SERVE_BLOCK
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_research_") as rdir:
+        scfg = ServeConfig(research_dir=rdir, slo_latency_ms=600_000.0)
+        tel = Telemetry()
+        srv = FactorServer(src, names=names, telemetry=tel, serve_cfg=scfg,
+                           rolling_impl="cuda", research=True, device="cuda")
+        door = None
+        try:
+            client = srv.client(timeout=1200)
+            t0 = time.perf_counter()
+            ans = client.discover(0, d1, **DISC_JOB)
+            job_s = time.perf_counter() - t0
+            name = ans["name"]
+            if ans["syncs_per_generation"] != 1.0 \
+                    or ans["compiles_during_loop"] != 0:
+                fail(f"phase 12 server job: {ans}")
+            if not os.path.exists(ans["record_path"]) \
+                    or srv.factor_list()["discovered"] != [name]:
+                fail(f"phase 12 server job: record {ans['record_path']} or "
+                     f"factor list {srv.factor_list()['discovered']}")
+            torch.cuda.synchronize()
+            rolling_cuda.reset_launches()
+            t0 = time.perf_counter()
+            got = client.factors(0, d1, names=(name,))
+            rebuild_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(rolling_cuda.launches)
+            if launches != {"tiled": 1, "rowwise": 0}:
+                fail(f"phase 12: the rebuild after the registration launched "
+                     f"{launches}; expected one tiled launch")
+            rec = registry.load_record(ans["record_path"])
+            sbars, smask = src.slab(0, d1)
+            buf, spec = wire.pack_arrays(wire.encode(sbars, smask).arrays)
+            dbars, dmask = wire.decode(*wire.unpack(
+                torch.from_numpy(buf).cuda(), spec))
+            want = registry.make_kernel(rec.genome, rec.skeleton)(
+                DayContext(dbars, dmask.to(torch.bool))).cpu().numpy()
+            served = np.asarray(got["exposures"][name], np.float32)
+            if not np.array_equal(np.isnan(served), np.isnan(want)):
+                fail("phase 12: served NaN positions differ from make_kernel")
+            ok = ~np.isnan(want)
+            if not np.allclose(served[ok], want[ok], rtol=1e-5, atol=1e-6):
+                fail("phase 12: served exposures differ from make_kernel")
+            log(f"phase 12 server ({card}): discover(0, {d1}, {DISC_JOB}) -> "
+                f"{name} = {ans['describe']} in {job_s:.2f} s (|IC| "
+                f"{ans['fitness']:.6f}, syncs_per_generation "
+                f"{ans['syncs_per_generation']}, compiles_during_loop "
+                f"{ans['compiles_during_loop']}); the next factors query "
+                f"rebuilt the block in {rebuild_s * 1e3:.1f} ms with launches "
+                f"{launches}, its {served.shape} exposures equal make_kernel "
+                f"on the block's decoded bars (NaN identical, rtol 1e-5 / "
+                f"atol 1e-6, max abs diff "
+                f"{float(np.max(np.abs(served[ok] - want[ok]))):.3g})")
+            door = serve_frontdoor(srv, host="127.0.0.1", port=0,
+                                   transport="edge")
+            base = f"http://127.0.0.1:{door.server_address[1]}"
+            with urllib.request.urlopen(f"{base}/v1/factors",
+                                        timeout=60) as resp:
+                listed = json.loads(resp.read())
+            if listed != srv.factor_list():
+                fail("phase 12: GET /v1/factors over the edge differs")
+            req = urllib.request.Request(
+                f"{base}/v1/discover", data=json.dumps(
+                    {"start": 0, "end": d1, **DISC_JOB}).encode())
+            with urllib.request.urlopen(req, timeout=1200) as resp:
+                edge_ans = json.loads(resp.read())
+            keys = ("name", "describe", "fitness", "mean_ic", "mean_rank_ic",
+                    "spread", "history", "generations", "pop",
+                    "syncs_per_generation", "compiles_during_loop")
+            if json.dumps({k: edge_ans[k] for k in keys}) \
+                    != json.dumps({k: ans[k] for k in keys}):
+                fail(f"phase 12: POST /v1/discover over the edge answered "
+                     f"{edge_ans}, in process {ans}")
+            log("phase 12 edge on 127.0.0.1: GET /v1/factors and POST "
+                "/v1/discover answer as in process")
+        finally:
+            if door is not None:
+                door.shutdown()
+            srv.close()
+        tel2 = Telemetry()
+        with FactorServer(src, names=names, telemetry=tel2, serve_cfg=scfg,
+                          rolling_impl="cuda", research=True,
+                          device="cuda") as again:
+            reloaded = tel2.registry.counter_value("discover.reloaded")
+            if reloaded != 1 or again.factor_list()["discovered"] != [name]:
+                fail(f"phase 12: the second server reloaded {reloaded} "
+                     f"records: {again.factor_list()['discovered']}")
+            second = again.client(timeout=1200).factors(0, d1, names=(name,))
+            if not same_values(np.asarray(second["exposures"][name]),
+                               served):
+                fail("phase 12: the reloaded factor answers other bits")
+        log(f"phase 12 reload: a second server on the same research_dir "
+            f"reloaded {int(reloaded)} record and answers {name} bitwise")
+
+
 def kind_name(card: str) -> str:
     """The card's name from nvidia-smi's ``name, power.limit`` line."""
     return card.split(",")[0].strip()
@@ -2485,6 +2876,9 @@ def main() -> None:
 
     # 11. the factor server at full width
     serve_line = serve_path(tables, card)
+
+    # 12. factor discovery at full width
+    discovery_path(card)
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"

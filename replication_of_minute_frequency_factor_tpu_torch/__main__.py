@@ -26,6 +26,11 @@ it, both raise):
     python -m replication_of_minute_frequency_factor_tpu_torch serve \
         --demo 6 --synthetic-days 6 --synthetic-tickers 16
 
+    # with the factor-discovery engine: POST /v1/discover runs a
+    # bounded search, the winner is served as a disc_<hash> factor
+    python -m replication_of_minute_frequency_factor_tpu_torch serve \
+        --port 0 --research --research-dir out/discoveries
+
     # observability demo: run the device pipeline over synthetic day
     # files and write the telemetry bundle (manifest.json,
     # metrics.jsonl, trace.json)
@@ -33,9 +38,9 @@ it, both raise):
         --telemetry-dir out/
 
 Still waiting for the slices that port what they drive: the
-``analyze`` subcommand, ``serve --fleet`` and ``serve --research``
-(ROADMAP Queue 1 item 7; both exit 2) with ``serve --research-dir``,
-and the ``--backend``, ``--mesh-tickers`` and ``--profile-dir`` flags.
+``analyze`` subcommand, ``serve --fleet`` (ROADMAP Queue 1 item 7; N > 0
+exits 2), and the ``--backend``, ``--mesh-tickers`` and ``--profile-dir``
+flags.
 """
 
 from __future__ import annotations
@@ -156,8 +161,14 @@ def _add_serve(sub: "argparse._SubParsersAction") -> None:
                    help="comma-separated ingest micro-batch minute "
                         "counts warmed at startup (default: 1)")
     p.add_argument("--research", action="store_true",
-                   help="host the factor-discovery engine: not ported "
-                        "yet (exits 2)")
+                   help="also host the factor-discovery engine: POST "
+                        "/v1/discover runs a bounded-generations "
+                        "evolutionary search, the winning genome "
+                        "registers as a live disc_<hash> factor, GET "
+                        "/v1/factors lists built-in + discovered")
+    p.add_argument("--research-dir", default=None, metavar="DIR",
+                   help="persist discovered-genome records as "
+                        "<name>.json under DIR (reloaded at startup)")
     p.add_argument("--fleet", type=int, default=0, metavar="N",
                    help="run N replicas over disjoint cards: not ported "
                         "yet (N > 0 exits 2); 0 = a single server")
@@ -186,9 +197,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
                         SyntheticSource, serve_frontdoor)
     from .telemetry import Telemetry, set_telemetry
 
-    if args.fleet > 0 or args.research:
-        what = "--fleet" if args.fleet > 0 else "--research"
-        print(f"serve {what} is not ported yet (ROADMAP Queue 1 item 7)",
+    if args.fleet > 0:
+        print("serve --fleet is not ported yet (ROADMAP Queue 1 item 7)",
               file=sys.stderr)
         return 2
     all_names = factor_names()
@@ -209,6 +219,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
                                  session=args.session)
     scfg = ServeConfig(batch_window_s=args.batch_window_ms / 1e3,
                        cache_bytes=args.cache_mb * 1024 * 1024,
+                       research_dir=args.research_dir,
                        edge=args.transport)
     telemetry_dir = getattr(args, "telemetry_dir", None)
 
@@ -224,6 +235,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     with FactorServer(source, names=names, serve_cfg=scfg,
                       telemetry=tel, stream=args.stream,
                       stream_batches=stream_batches or (1,),
+                      research=args.research,
                       device=args.device) as server:
         if args.demo is not None:
             client = server.client()

@@ -73,10 +73,11 @@ def qcut_labels(exposure, valid, group_num: int, nan_lanes=None):
 
 def quantile_levels(group_num: int, device=None):
     """The interior levels ``jnp.linspace(0, 1, group_num + 1)[1:-1]`` as
-    f32, bit for bit: ``i * f32(1 / group_num)``, made on the host."""
-    step = np.float32(1.0 / group_num)
-    levels = np.arange(1, group_num, dtype=np.float32) * step
-    return torch.from_numpy(levels).to(device)
+    f32, bit for bit: ``i * f32(1 / group_num)``, one f32 product each,
+    made on the device (no copy from the host, which would wait)."""
+    step = float(np.float32(1.0 / group_num))
+    return torch.arange(1, group_num, dtype=torch.float32,
+                        device=device) * step
 
 
 def _qcut_labels(exposure, valid, group_num: int):

@@ -32,7 +32,11 @@ Streaming: ``FactorServer(stream=True)`` additionally owns a
 :class:`..stream.engine.StreamEngine` — minute bars ingest through the
 same request queue (:class:`Ingest`, ``POST /v1/ingest``) and
 ``Query(kind="intraday")`` serves the carry's partial-day exposures.
-Discovery (``research=True``, ``POST /v1/discover``) is not ported yet.
+Discovery: ``FactorServer(research=True)`` additionally owns a
+:class:`..research.evolve.DiscoveryEngine` — bounded evolutionary
+searches run as :class:`Discover` jobs on the same queue (``POST
+/v1/discover``), the winning genome registers as a live ``disc_<hash>``
+factor, and ``GET /v1/factors`` lists built-in + discovered names.
 
 Run it: ``python -m replication_of_minute_frequency_factor_tpu_torch
 serve`` (``--device cpu`` on a machine without a card).
@@ -43,7 +47,7 @@ from __future__ import annotations
 from .executables import ExecutableCache
 from .expcache import DeviceExposureCache
 from .source import MinuteDirSource, SyntheticSource
-from .service import (FactorServer, Ingest, LoadShedError,
+from .service import (Discover, FactorServer, Ingest, LoadShedError,
                       Query, ServeConfig, ServeClient)
 from .http import WIRE_CONTENT_TYPE, serve_frontdoor, serve_http
 from .edge import EdgeServer, serve_edge
@@ -51,7 +55,7 @@ from .wireclient import WireClient, WireError, decode_answer, \
     decode_frames
 
 __all__ = [
-    "DeviceExposureCache", "EdgeServer",
+    "DeviceExposureCache", "Discover", "EdgeServer",
     "ExecutableCache", "FactorServer", "Ingest", "LoadShedError",
     "MinuteDirSource", "Query", "ServeClient", "ServeConfig",
     "SyntheticSource", "WIRE_CONTENT_TYPE", "WireClient", "WireError",

@@ -36,9 +36,19 @@ not waited for; the one host fetch of a query's answer
 (:func:`_fetch`, ``.cpu().numpy()``) is where it is waited for, and
 where a device error surfaces.
 
-Not ported yet (ROADMAP Queue 1 item 7): ``research=True`` and its
-discovery jobs, and a ``devices=`` list of more than one card (the
-fleet); both raise ``NotImplementedError`` at construction.
+Discovery: a server constructed with ``research=True`` also owns a
+:class:`..research.evolve.DiscoveryEngine` on its device and accepts
+:meth:`FactorServer.discover` jobs (:class:`Discover`, ``POST
+/v1/discover``) through the SAME queue: the worker runs the bounded
+search, registers the best genome as a live ``disc_<hash>`` factor
+(persisted under ``ServeConfig.research_dir``, reloaded from there at the
+next start), grows the served names and clears the exposure cache, so
+the next query over any range answers the new name. A failed job fails
+its own future and bumps the breaker; it never carries on elsewhere.
+
+Not ported yet (ROADMAP Queue 1 item 7): a ``devices=`` list of more than
+one card (the fleet), which raises ``NotImplementedError`` at
+construction.
 """
 
 from __future__ import annotations
@@ -114,6 +124,27 @@ class Query:
 
 
 @dataclasses.dataclass(frozen=True)
+class Discover:
+    """One bounded-generations factor-discovery job: an evolutionary
+    search over the source's days ``[start, end)`` through the SAME
+    request queue as every other request — breaker/shed/trace-ID
+    semantics unchanged. The worker runs the search
+    (``research/evolve.DiscoveryEngine``, a warm generation callable, one
+    labelled host sync per generation), registers the best genome as a
+    live factor name (``disc_<hash>``), persists its genome record when
+    ``ServeConfig.research_dir`` is set, and resolves the future with the
+    name + backtest stats. Generations/population are bounded by
+    ``ServeConfig.discover_max_*`` at validation."""
+    start: int
+    end: int
+    generations: int = 4
+    pop: int = 128
+    seed: int = 0
+    horizon: int = 1
+    skeleton: str = "default"
+
+
+@dataclasses.dataclass(frozen=True)
 class Ingest:
     """Minute bars for the streaming carry: ``bars
     [B, T, 5]`` f32 / ``present [B, T]`` bool host arrays advance the
@@ -183,6 +214,15 @@ class ServeConfig:
     #: (data/result_wire.RESULT_BOUNDS), which answer consumers must
     #: accept; widened slices stay bitwise.
     result_wire: bool = False
+    #: where discovered-genome records persist as ``disc_<hash>.json``
+    #: (None = in-memory registration only); a research server reloads
+    #: every record there at startup
+    research_dir: Optional[str] = None
+    #: upper bounds a ``POST /v1/discover`` request is validated
+    #: against — a research server stays a bounded-latency service,
+    #: not an unbounded compute endpoint
+    discover_max_generations: int = 64
+    discover_max_pop: int = 8192
     #: front-door transport the CLI binds: ``edge`` is the
     #: evented selectors loop (:mod:`.edge` — keep-alive, pipelining,
     #: binary wire answers, per-tenant quotas); ``legacy`` keeps the
@@ -249,10 +289,6 @@ class FactorServer:
         from ..models.registry import factor_names
         from ..pipeline import resolve_device
         from ..telemetry import get_telemetry
-        if research:
-            raise NotImplementedError(
-                "FactorServer(research=True): factor discovery is not "
-                f"ported yet ({_ITEM7})")
         if devices is not None and len(devices) > 1:
             raise NotImplementedError(
                 f"FactorServer(devices=[{len(devices)} devices]): a "
@@ -318,6 +354,24 @@ class FactorServer:
                 finalize_impl=self.scfg.stream_finalize_impl,
                 device=self.device)
             self.stream_engine.warmup(micro_batches=stream_batches)
+        #: the factor-discovery engine on this server's device, sharing
+        #: THE executable cache. Built-in names are pinned here so
+        #: ``factor_list`` can split built-in from discovered after
+        #: registrations grow ``self.names``.
+        self.research_engine = None
+        if research:
+            from ..research.evolve import DiscoveryEngine
+            self.research_engine = DiscoveryEngine(
+                telemetry=self.telemetry, executables=self.executables,
+                device=self.device)
+        self._builtin_names: Tuple[str, ...] = self.names
+        #: a research server's discoveries survive the process: restart
+        #: reloads every persisted ``disc_<hash>.json`` under
+        #: ``research_dir`` into the live registry and this server's
+        #: factor set, so a previously discovered name is queryable the
+        #: moment the server is up
+        if research and self.scfg.research_dir:
+            self._reload_discoveries()
         self._q: "queue.Queue" = queue.Queue(maxsize=self.scfg.queue_limit)
         self._state_lock = threading.Lock()
         self._consecutive = 0
@@ -343,8 +397,8 @@ class FactorServer:
             self.telemetry.hbm.start(self.scfg.hbm_sample_period_s)
         #: SLO plane: the continuous timeline sampler + declarative
         #: burn-rate objectives. The sampler reads only host-side state
-        #: (registry snapshots, the stream engine's staleness mirror); an
-        #: alert transition force-dumps THIS server's flight recorder
+        #: (registry snapshots, the stream engine's staleness mirror, the
+        #: discovery engine's progress mirror); an alert transition force-dumps THIS server's flight recorder
         #: under the ``slo_burn`` trigger.
         self.timeline = self.telemetry.timeline
         self.sloplane = self.telemetry.sloplane
@@ -358,6 +412,8 @@ class FactorServer:
                 return {"stream.staleness_s": round(s, 6)}
 
             self.timeline.add_source(_stream_freshness)
+        if self.research_engine is not None:
+            self.timeline.add_source(self.research_engine.progress)
         from ..telemetry.slo import serve_objectives
         self.sloplane.configure(
             serve_objectives(latency_ms=self.scfg.slo_latency_ms,
@@ -439,13 +495,17 @@ class FactorServer:
             if self.stream_engine is None:
                 raise ValueError("intraday queries need a server "
                                  "constructed with stream=True")
-            # validate against the STREAM engine's factor set: its
-            # warm callables were built over the construction-time set
+            # validate against the STREAM engine's factor set: a
+            # discovered factor grows self.names for block queries, but
+            # the streaming carry's warm callables were built over the
+            # construction-time set — genome factors have no incremental
+            # finalize, so intraday must refuse them loudly
             unknown = [n for n in (q.names or ())
                        if n not in self.stream_engine.names]
             if unknown:
                 raise ValueError(
                     f"unknown factor(s) {unknown} for intraday — "
+                    f"non-streamable (a discovered factor) or "
                     f"unregistered; the stream engine holds "
                     f"{len(self.stream_engine.names)}")
             return
@@ -511,21 +571,50 @@ class FactorServer:
                  pop: int = 128, seed: int = 0, horizon: int = 1,
                  skeleton: str = "default",
                  trace_id: Optional[str] = None) -> Future:
-        """``POST /v1/discover``: refused as by a server built without
-        ``research=True`` (the front doors answer 400), since factor
-        discovery is not ported yet."""
+        """Enqueue a bounded-generations discovery job over days
+        ``[start, end)``. Returns a Future resolving to the discovery
+        answer (name, backtest stats, record path); sheds and validates
+        exactly like :meth:`submit` — the breaker and the bounded queue
+        apply to research traffic unchanged."""
+        from ..research.evolve import resolve_skeleton
         if self._closed:
             raise RuntimeError("server is closed")
-        raise ValueError("discover needs a server constructed with "
-                         f"research=True, which is not ported yet "
-                         f"({_ITEM7})")
+        if self.research_engine is None:
+            raise ValueError("discover needs a server constructed "
+                             "with research=True")
+        n_days = self.source.n_days
+        if not (0 <= start < end <= n_days):
+            raise ValueError(f"day range [{start}, {end}) outside the "
+                             f"source's {n_days} days")
+        if not (1 <= horizon < end - start):
+            raise ValueError(
+                f"horizon {horizon} needs a range longer than itself "
+                f"(got {end - start} days)")
+        if not (1 <= generations
+                <= self.scfg.discover_max_generations):
+            raise ValueError(
+                f"generations must be in [1, "
+                f"{self.scfg.discover_max_generations}]")
+        if not (2 <= pop <= self.scfg.discover_max_pop):
+            raise ValueError(
+                f"pop must be in [2, {self.scfg.discover_max_pop}]")
+        resolve_skeleton(skeleton)  # raises on an unknown name
+        return self._enqueue(
+            Discover(int(start), int(end), int(generations), int(pop),
+                     int(seed), int(horizon), skeleton),
+            "discover", trace_id)
 
     def factor_list(self) -> dict:
-        """``GET /v1/factors``: the server's factor universe, the
-        built-in names it was constructed over (nothing is discovered
-        without ``research=True``)."""
-        return {"builtin": list(self.names), "discovered": [],
-                "count": len(self.names), "research": False}
+        """``GET /v1/factors``: the server's live factor universe — the
+        built-in names it was constructed over plus every factor
+        discovered since, each immediately queryable by name through
+        the normal ``/v1/query`` leg."""
+        names = self.names  # one atomic read (registration swaps it)
+        builtin = [n for n in names if n in self._builtin_names]
+        discovered = [n for n in names if n not in self._builtin_names]
+        return {"builtin": builtin, "discovered": discovered,
+                "count": len(names),
+                "research": self.research_engine is not None}
 
     def _enqueue(self, item, kind: str,
                  trace_id: Optional[str] = None) -> Future:
@@ -631,7 +720,7 @@ class FactorServer:
                        # rate limit dropped — no longer silent
                        "suppressed": self.flight.suppressed_count},
             "hbm_available": bool(hbm.get("available")),
-            "research": False,
+            "research": self.research_engine is not None,
             "replica": {"label": self.replica_label,
                         "devices": device_names,
                         "breaker": self.breaker_state()},
@@ -740,8 +829,14 @@ class FactorServer:
             # every intraday answer in this micro-batch sees every bar
             # that arrived before the batch was drained)
             ingests = [p for p in batch if isinstance(p.query, Ingest)]
+            # discovery jobs run after ingests and BEFORE query groups: a
+            # factor registered by this micro-batch's job is queryable by
+            # the NEXT request, and a query group dispatched after it
+            # already sees the grown name set
+            discovers = [p for p in batch
+                         if isinstance(p.query, Discover)]
             queries = [p for p in batch
-                       if not isinstance(p.query, Ingest)]
+                       if not isinstance(p.query, (Ingest, Discover))]
             groups: Dict[Tuple[int, int], list] = {}
             for p in queries:
                 key = ("intraday" if p.query.kind == "intraday"
@@ -750,6 +845,8 @@ class FactorServer:
             self.telemetry.gauge("serve.inflight", len(batch))
             for p in ingests:
                 self._apply_ingest(p)
+            for p in discovers:
+                self._apply_discover(p)
             for key, group in groups.items():
                 if key == "intraday":
                     self._dispatch_intraday(group)
@@ -794,6 +891,133 @@ class FactorServer:
         self.flight.note_dispatch({"dispatch_id": did, "op": "ingest",
                                    "minute": self.stream_engine.minutes})
         tel.hbm.sample("serve.ingest")
+
+    def _reload_discoveries(self) -> int:
+        """Reload persisted ``disc_*.json`` records from ``research_dir``
+        into ``research/registry`` and this server's factor universe
+        (construction-time; no worker is running yet, so growing
+        ``self.names`` here is single-threaded). Corrupted records are
+        skipped loudly — one bad file must not take the server down.
+        Returns the number of reloaded records."""
+        import glob as _glob
+        import os as _os
+
+        from ..research import registry as research_registry
+        from ..utils.logging import get_logger
+        n = 0
+        for path in sorted(_glob.glob(_os.path.join(
+                self.scfg.research_dir, "disc_*.json"))):
+            try:
+                rec = research_registry.load_record(path)
+            except (OSError, ValueError, KeyError) as e:
+                get_logger(__name__).warning(
+                    "skipping unloadable discovery record %s: %s",
+                    path, e)
+                self.telemetry.counter("discover.reload_failures")
+                continue
+            research_registry.register_genome(
+                rec.genome, rec.skeleton, fitness=rec.fitness,
+                mean_ic=rec.mean_ic, mean_rank_ic=rec.mean_rank_ic,
+                spread=rec.spread, generations=rec.generations,
+                pop=rec.pop, data_fingerprint=rec.data_fingerprint,
+                telemetry=self.telemetry)
+            if rec.name not in self.names:
+                self.names = self.names + (rec.name,)
+                self.engine.names = self.names
+            self.telemetry.counter("discover.reloaded")
+            n += 1
+        return n
+
+    def _apply_discover(self, p: _Pending) -> None:
+        """Run one bounded-generations discovery job: prepare + warm the
+        generation callable (builds land HERE, before the generation
+        loop — the job's measured ``compiles_during_loop`` must be 0),
+        evolve, register the best genome into the live factor universe,
+        and clear the exposure cache (cached blocks predate the new name
+        and hold the wrong ``[F]`` extent). A failed job fails only its
+        own future but bumps the breaker, like ingest."""
+        from ..research import fitness as research_fitness
+        from ..research import registry as research_registry
+        from ..research.evolve import resolve_skeleton
+        tel = self.telemetry
+        did = self._next_dispatch()
+        t_dispatch = time.monotonic()
+        d: Discover = p.query
+        with tel.tracer("serve.discover", trace_id=p.trace_id):
+            t0 = time.perf_counter()
+            try:
+                bars, mask = self.source.slab(d.start, d.end)
+                fwd_ret, fwd_valid = \
+                    research_fitness.host_forward_returns(
+                        bars, mask, d.horizon)
+                eng = self.research_engine
+                eng.skeleton = resolve_skeleton(d.skeleton)
+                data = eng.prepare(bars, mask, fwd_ret, fwd_valid,
+                                   horizon=d.horizon)
+                eng.warmup(data, d.pop)
+                result = eng.evolve(
+                    data, pop=d.pop, generations=d.generations,
+                    rng=np.random.default_rng(d.seed))
+                rec = research_registry.register_genome(
+                    result.genome, result.skeleton,
+                    fitness=result.fitness, mean_ic=result.mean_ic,
+                    mean_rank_ic=result.mean_rank_ic,
+                    spread=result.spread,
+                    generations=result.generations, pop=result.pop,
+                    data_fingerprint=result.fingerprint,
+                    save_dir=self.scfg.research_dir, telemetry=tel)
+                if rec.name not in self.names:
+                    # atomic tuple swap: submit-side validation reads
+                    # self.names without the state lock. The engine's
+                    # copy grows with it (block builds run over
+                    # engine.names; both writes happen on the worker
+                    # thread, the only thread that dispatches), and
+                    # cached blocks are dropped — they predate the new
+                    # name and hold the wrong [F] extent.
+                    self.names = self.names + (rec.name,)
+                    self.engine.names = self.names
+                    self.cache.clear()
+                job_s = time.perf_counter() - t0
+                tel.observe("serve.stage_seconds", job_s,
+                            stage="discover")
+            except Exception as e:  # noqa: BLE001 — per-job + breaker
+                tel.counter("serve.failures", stage="discover")
+                self._complete(p, "discover", "error", did, 1,
+                               time.perf_counter() - t0, 0.0,
+                               t_dispatch, error=e)
+                self._breaker_failure()
+                p.future.set_exception(e)
+                return
+            record_path = None
+            if self.scfg.research_dir:
+                import os as _os
+                record_path = _os.path.join(self.scfg.research_dir,
+                                            f"{rec.name}.json")
+            self._breaker_ok()
+            p.future.set_result({
+                "trace_id": p.trace_id,
+                "name": rec.name,
+                "describe": rec.description,
+                "fitness": result.fitness,
+                "mean_ic": result.mean_ic,
+                "mean_rank_ic": result.mean_rank_ic,
+                "spread": result.spread,
+                "generations": result.generations,
+                "pop": result.pop,
+                "n_shards": result.n_shards,
+                "syncs_per_generation": result.syncs_per_generation,
+                "compiles_during_loop": result.compiles_during_loop,
+                "history": [round(h, 6) for h in result.history],
+                "record_path": record_path,
+            })
+            tel.observe("serve.request_seconds",
+                        time.monotonic() - p.t_enqueue, kind="discover")
+            self._complete(p, "discover", "ok", did, 1, job_s, 0.0,
+                           t_dispatch)
+        self.flight.note_dispatch({"dispatch_id": did, "op": "discover",
+                                   "name": rec.name,
+                                   "generations": result.generations})
+        tel.hbm.sample("serve.discover")
 
     def _dispatch_intraday(self, group: list) -> None:
         """ONE warm snapshot dispatch (+ one host fetch) answers every
@@ -911,7 +1135,8 @@ class FactorServer:
     def _answer_intraday(self, exp: np.ndarray, rdy: np.ndarray,
                          minute: int, q: Query) -> dict:
         # index by the STREAM engine's names: the snapshot's [F, T]
-        # rows follow its construction-time set
+        # rows follow its construction-time set, which a later
+        # discovery registration never grows (see _validate)
         stream_names = self.stream_engine.names
         names = q.names or stream_names
         idx = [stream_names.index(n) for n in names]
@@ -1171,6 +1396,15 @@ class ServeClient:
         q = Query("intraday", names=tuple(names) if names else None)
         return self._server.submit(q).result(self._timeout)
 
+    def discover(self, start: int, end: int, generations: int = 4,
+                 pop: int = 128, seed: int = 0, horizon: int = 1,
+                 skeleton: str = "default") -> dict:
+        """Run a bounded-generations discovery job and block for its
+        answer (the registered name + backtest stats)."""
+        return self._server.discover(
+            start, end, generations=generations, pop=pop, seed=seed,
+            horizon=horizon, skeleton=skeleton).result(self._timeout)
+
     def factor_list(self) -> dict:
-        """The server's factor names (``GET /v1/factors``)."""
+        """Built-in + discovered factor names (``GET /v1/factors``)."""
         return self._server.factor_list()

@@ -166,7 +166,7 @@ def test_the_cli_refuses_the_cpu_unless_asked(workspace, capsys,
     ["compute", "--minute-dir", "d", "--cache", "c", "--rolling-impl",
      "pallas"],
     ["serve", "--demo", "1", "--backend", "numpy"],
-    ["serve", "--demo", "1", "--research-dir", "r"],
+    ["serve", "--demo", "1", "--profile-dir", "p"],
     ["analyze"],
     [],
 ])
@@ -177,12 +177,15 @@ def test_unported_flags_and_subcommands_are_rejected(argv, capsys):
 
 
 def test_serve_fleet_and_research_exit_2_naming_the_roadmap(capsys):
-    """``serve --fleet N>0`` and ``serve --research`` are not ported:
-    each exits 2 and says which ROADMAP item they wait for."""
-    for argv in (["serve", "--fleet", "2", "--device", "cpu"],
-                 ["serve", "--research", "--device", "cpu"]):
-        assert main(argv) == 2
-        assert "ROADMAP Queue 1 item 7" in capsys.readouterr().err
+    """``serve --fleet N>0`` is not ported: it exits 2 and says which
+    ROADMAP item it waits for. ``serve --research`` is ported now: it
+    no longer exits 2, and a research server answers the demo."""
+    assert main(["serve", "--fleet", "2", "--device", "cpu"]) == 2
+    assert "ROADMAP Queue 1 item 7" in capsys.readouterr().err
+    assert main(["serve", "--research", "--demo", "1", "--device", "cpu",
+                 "--synthetic-days", "4", "--synthetic-tickers", "8",
+                 "--factors", "vol_return1min"]) == 0
+    assert _last_json(capsys)["demo_requests"] == 1
 
 
 def test_compute_telemetry_dir_writes_the_bundle(workspace, capsys):

@@ -527,3 +527,134 @@ def test_hbm_sampler_is_available_on_the_card():
     assert out["devices"][dev]["peak_bytes"] \
         == torch.cuda.max_memory_allocated()
     del keep
+
+
+#: the interpreter tolerance of tests/test_torch_search.py (the JAX
+#: package's, tests/test_search.py:38)
+SEARCH_RTOL, SEARCH_ATOL = 2e-4, 1e-6
+
+
+def _discovery_slab(n_days=6, n_tickers=48, seed=5):
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        host_forward_returns)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        SyntheticSource)
+    bars, mask = SyntheticSource(n_days=n_days, n_tickers=n_tickers,
+                                 seed=seed).slab(0, n_days)
+    return (bars, mask) + host_forward_returns(bars, mask)
+
+
+@pytest.mark.cuda
+def test_one_generation_launches_without_a_sync():
+    """A warm generation on the card is enqueued without one device
+    wait (``set_sync_debug_mode("error")`` up to the fetch); its top-k
+    is the host argsort's first ``n_elite``; a short loop keeps one
+    sync a generation and builds nothing."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch import search
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        DiscoveryEngine)
+    slab = _discovery_slab()
+    eng = DiscoveryEngine(telemetry=Telemetry(), device="cuda")
+    data = eng.prepare(*slab)
+    pop = 64
+    n_elite = eng._n_elite(pop, 0.1)
+    eng.warmup(data, pop)
+    exe = eng._generation_exe(data, pop, n_elite)
+    g = search.random_population(np.random.default_rng(3), pop)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stats, top_vals, top_idx = exe(g, *data.device_args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    stats = stats.cpu().numpy()
+    assert stats.shape == (pop, 4)
+    fits = np.nan_to_num(stats[:, 0], nan=-1.0)
+    host = np.argsort(-fits, kind="stable")[:n_elite]
+    np.testing.assert_array_equal(top_idx.cpu().numpy(), host)
+    np.testing.assert_array_equal(top_vals.cpu().numpy(), fits[host])
+    res = eng.evolve(data, pop=pop, generations=3,
+                     rng=np.random.default_rng(4))
+    assert res.syncs_per_generation == 1.0
+    assert res.compiles_during_loop == 0
+
+
+@pytest.mark.cuda
+def test_generation_stats_on_the_card_equal_the_cpu():
+    """``generation_stats`` on the card against the port on the CPU for
+    one population over the ops of bounded conditioning: NaN positions
+    identical, fitness and IC within the interpreter tolerance, the rank
+    IC and spread likewise on the candidates whose card and CPU exposures
+    order every date alike (torch_cases.same_order)."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch import search
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        fitness)
+    from torch_cases import bounded_population, same_order
+    bars, mask, fr, fv = _discovery_slab()
+    g = bounded_population(7, 96, search.DEFAULT_SKELETON)
+    out, vals = {}, {}
+    for dev in ("cpu", "cuda"):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (bars, mask, fr, fv)]
+        feats = search._features(args[0], args[1])
+        out[dev] = fitness.generation_stats(
+            g, feats, args[1], args[2], args[3], search.DEFAULT_SKELETON,
+            5, 32).cpu().numpy()
+        vals[dev] = search.eval_programs(g, args[0], args[1]).cpu().numpy()
+    order = same_order(vals["cuda"], vals["cpu"],
+                       np.isfinite(vals["cpu"]) & fv)
+    cpu, card = out["cpu"], out["cuda"]
+    assert np.array_equal(np.isnan(cpu), np.isnan(card))
+    np.testing.assert_allclose(card[:, :2], cpu[:, :2], rtol=SEARCH_RTOL,
+                               atol=SEARCH_ATOL)
+    np.testing.assert_allclose(card[order, 2:], cpu[order, 2:],
+                               rtol=SEARCH_RTOL, atol=SEARCH_ATOL)
+    assert order.sum() > len(g) // 2
+
+
+@pytest.mark.cuda
+def test_served_discovered_factor_on_the_card_matches_make_kernel(
+        tmp_path):
+    """A research server on the card discovers a factor; its served
+    exposures equal the registered kernel evaluated on the block's
+    decoded bars on the card (NaN positions identical, rtol 1e-5 / atol
+    1e-6, tests/test_research.py:358-359), and the rebuild after the
+    registration is one tiled launch."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        registry)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, Query, ServeConfig, SyntheticSource)
+    src = SyntheticSource(n_days=8, n_tickers=64, seed=9)
+    names = ("vol_return1min", "mmt_ols_qrs")
+    with FactorServer(src, names=names, rolling_impl="cuda",
+                      serve_cfg=ServeConfig(research_dir=str(tmp_path),
+                                            hbm_sample_period_s=0),
+                      telemetry=Telemetry(), research=True,
+                      device="cuda") as srv:
+        ans = srv.discover(0, 6, generations=2, pop=32,
+                           seed=7).result(600)
+        assert ans["syncs_per_generation"] == 1.0
+        assert ans["compiles_during_loop"] == 0
+        name = ans["name"]
+        before = dict(rolling_cuda.launches)
+        got = srv.submit(Query("factors", 0, 6, names=(name,))).result(600)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"tiled": 1, "rowwise": 0}
+    rec = registry.load_record(ans["record_path"])
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        registry as models_registry)
+    for d in (models_registry.ALIASES, models_registry.FINALIZE_CLASSES,
+              registry.DISCOVERED):
+        d.pop(name)  # the registration stays inside this test
+    bars, mask = src.slab(0, 6)
+    buf, spec = wire.pack_arrays(wire.encode(bars, mask).arrays)
+    dbars, dmask = wire.decode(*wire.unpack(torch.from_numpy(buf).cuda(),
+                                            spec))
+    ctx = DayContext(dbars, dmask.to(torch.bool))
+    want = registry.make_kernel(rec.genome, rec.skeleton)(ctx).cpu().numpy()
+    a = np.asarray(got["exposures"][name], np.float32)
+    assert np.array_equal(np.isnan(a), np.isnan(want))
+    np.testing.assert_allclose(a, want, rtol=1e-5, atol=1e-6)

@@ -227,3 +227,57 @@ def test_the_server_refuses_the_cpu_unless_asked(monkeypatch):
         assert srv.device.type == "cpu"
         assert srv.stream_engine is None
         assert srv.health()["replica"]["devices"] == ["cpu"]
+
+
+def test_discovery_modules_load_no_jax():
+    """The port's search, research and research-mode server import
+    neither jax nor the JAX package (nor pyarrow)."""
+    code = (
+        "import sys\n"
+        "import replication_of_minute_frequency_factor_tpu_torch.search\n"
+        "import replication_of_minute_frequency_factor_tpu_torch.research\n"
+        "from replication_of_minute_frequency_factor_tpu_torch.research "
+        "import evolve, fitness, registry\n"
+        "from replication_of_minute_frequency_factor_tpu_torch.serve "
+        "import Discover, FactorServer\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout.split()
+    for mod in ("search", "research", "research.evolve",
+                "research.fitness", "research.registry", "serve.service"):
+        assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
+    assert [m for m in out if _forbidden(m)] == []
+    assert "pyarrow" not in out
+
+
+def test_discovery_refuses_the_cpu_unless_asked(monkeypatch, tmp_path):
+    """``DiscoveryEngine``, ``search.eval_programs`` on host arrays and
+    ``FactorServer(research=True)`` run on the card unless
+    ``device='cpu'`` is passed: without a card they raise, never fall
+    back."""
+    from replication_of_minute_frequency_factor_tpu_torch import search
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        DiscoveryEngine)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, ServeConfig, SyntheticSource)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = SyntheticSource(n_days=3, n_tickers=4, seed=0)
+    bars, mask = src.slab(0, 3)
+    g = search.random_population(np.random.default_rng(0), 2)
+    for make in (lambda: DiscoveryEngine(),
+                 lambda: search.eval_programs(g, bars, mask),
+                 lambda: FactorServer(src, names=("mmt_am",), start=False,
+                                      research=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DiscoveryEngine(device="cuda")
+    assert DiscoveryEngine(device="cpu").device.type == "cpu"
+    assert search.eval_programs(g, bars, mask, device="cpu").shape == \
+        (2, 3, 4)
+    with FactorServer(src, names=("mmt_am",), research=True, device="cpu",
+                      serve_cfg=ServeConfig(research_dir=str(tmp_path),
+                                            hbm_sample_period_s=0)) as srv:
+        assert srv.research_engine.device.type == "cpu"

@@ -498,12 +498,16 @@ def test_health_carries_replica_identity_block():
 
 
 def test_unported_parts_refuse_at_construction():
-    """Discovery and multi-card replicas are not ported: they refuse
-    loudly at construction, naming the ROADMAP item (the CPU refusal is
-    tests/test_torch_purity.py's)."""
+    """Multi-card replicas are not ported: they refuse loudly at
+    construction, naming the ROADMAP item (the CPU refusal is
+    tests/test_torch_purity.py's). Discovery is ported now:
+    ``research=True`` builds a research server (its behaviour is
+    tests/test_torch_research.py's)."""
     src = SyntheticSource(n_days=4, n_tickers=8, seed=3)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        FactorServer(src, names=NAMES, research=True, device="cpu")
+    with FactorServer(src, names=NAMES, research=True, device="cpu",
+                      serve_cfg=ServeConfig(hbm_sample_period_s=0)) as srv:
+        assert srv.factor_list()["research"] is True
+        assert srv.health()["research"] is True
     with pytest.raises(NotImplementedError, match="item 7"):
         FactorServer(src, names=NAMES, devices=["cpu", "cpu"])
 

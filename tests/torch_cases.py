@@ -266,3 +266,48 @@ def prefix_day(bars, mask, t_stop: int):
     keep = np.zeros_like(mask)
     keep[:, :t_stop] = mask[:, :t_stop]
     return np.where(keep[..., None], bars, 0.0).astype(np.float32), keep
+
+
+#: the search ops whose conditioning is bounded, by slot kind (PUSH,
+#: UNARY, BINARY, MASK, AGG): every feature but the day-constant
+#: gap/prev_ret and the tod ramp; unary without the z-score and the
+#: rolling stds; binary without the protected divide and the rolling
+#: corr; every mask; aggregates without the std. A z-score, std or corr
+#: of a series that is constant in exact arithmetic, or a division by
+#: such a value, turns each evaluation's rounding into an answer of its
+#: own (tests/test_torch_search.py), so populations compared across
+#: frameworks or devices draw from these
+SEARCH_BOUNDED_OPS = {0: (0, 1, 2, 3, 4, 5, 6, 7, 11),
+                      1: (0, 1, 2, 3, 5, 6, 7, 8, 9),
+                      2: (0, 1, 2, 4, 5),
+                      3: (0, 1, 2, 3, 4, 5),
+                      4: (0, 2, 3, 4, 5)}
+
+
+def bounded_population(seed: int, pop: int, skeleton) -> np.ndarray:
+    """``[pop, L]`` int32 genomes over :data:`SEARCH_BOUNDED_OPS`."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.choice(SEARCH_BOUNDED_OPS[k], pop)
+                     for k in skeleton], axis=1).astype(np.int32)
+
+
+def same_order(a: np.ndarray, b: np.ndarray, valid: np.ndarray
+               ) -> np.ndarray:
+    """Per candidate, whether two evaluations of its exposures
+    ``[P, D, T]`` order the valid lanes of every date alike, ties
+    included. The rank IC and the decile spread are step functions of
+    that order: where two evaluations a few ulps apart order two nearly
+    equal exposures apart (a mean of a day-constant series is rounded
+    per ticker), they move by a step, not by an ulp."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    out = np.ones(a.shape[0], bool)
+    for p in range(a.shape[0]):
+        for d in range(a.shape[1]):
+            v = valid[p, d] if valid.ndim == 3 else valid[d]
+            x, y = a[p, d][v], b[p, d][v]
+            ox, oy = np.argsort(x, kind="stable"), np.argsort(y, kind="stable")
+            if not (np.array_equal(ox, oy) and np.array_equal(
+                    np.diff(x[ox]) == 0, np.diff(y[oy]) == 0)):
+                out[p] = False
+                break
+    return out
