@@ -138,11 +138,37 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    /v1/factors`` and ``POST /v1/discover`` over the edge as in process,
    and a second server on the same directory reloading the record and
    answering the same bits.
+13. the resident year and a profiled ``compute``. 13a: a year of
+   ``bench.make_batch``'s recipe, 8 batches x 32 days x 5000 tickers on
+   ``cn_ashare_240`` (256 days, bench.py's headline loop shape), made and
+   encoded one batch at a time under one shared floor
+   (``tests/torch_cases.encode_year``; only the packed buffers are kept),
+   copied to the card pinned and non-blocking, and run by ONE
+   ``compute_packed_resident`` call for all 58 factors with
+   ``rolling_impl='cuda'`` under ``torch.cuda.set_sync_debug_mode
+   ('error')``, then fetched once. Held: 8 tiled launches (counts reset
+   just before, read just after), no host sync inside the call, batches 0
+   and 7 bitwise ``compute_packed_prepared`` on fresh copies of their
+   buffers, the donated handles raising ``DonatedBufferError`` on use
+   (naming the contract under ``debug_validate``), and the same year with
+   ``result_spec`` (spill floor grown until nothing overflows) and
+   ``factor_stats``: each payload byte-identical to ``encode_block`` of
+   its raw slice, each stats row bitwise ``factor_stats_block``. Timed:
+   the enqueue and the fetch apart, days/s, peak memory, and the tiled
+   kernel at the year's ``[160000, 240]`` in turns with its plain
+   version. 13b, inside phase 8's temporary directory (it runs right
+   after 9b): the CLI's ``compute --profile-dir --telemetry-dir`` in this
+   process over 16 of phase 8's day files (two tiled launches): the
+   trace has device events (``device_time_block`` available), names the
+   tiled kernel among its ops, and annotates the stages ``io``, ``grid``,
+   ``launch`` and ``device``; the cache is bitwise a run without the
+   profiler; the device time by op class and the device's busy share of
+   the wall are printed.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel and path (the tiled kernel on the host driver's batches, on the
-streaming snapshots and on the server's block builds, the rowwise kernel
-on the window-20 path); the last is
+streaming snapshots, on the server's block builds and on the resident
+year's batches, the rowwise kernel on the window-20 path); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1193,6 +1219,9 @@ def host_driver(names, tables, card: str) -> dict:
 
         # 9b. the user's path on these files and this cache
         user_path(tmp, minute_dir, cache, table, dates, card)
+
+        # 13b. the CLI's compute --profile-dir on some of these files
+        profiled_driver(tmp, minute_dir, names, card)
     return launches
 
 
@@ -2669,6 +2698,311 @@ def discovery_path(card: str) -> None:
             f"reloaded {int(reloaded)} record and answers {name} bitwise")
 
 
+#: phase 13a: the resident year, bench.py's headline loop shape (8 batches
+#: of 32 days x TICKERS on cn_ashare_240: 256 days), made from this seed
+YEAR_BATCHES, YEAR_DAYS, YEAR_SEED = 8, 32, 2026
+#: phase 13b: phase 8's first day files that the profiled compute reads
+PROFILED_DAYS = 16
+
+
+def resident_year(tables, card: str) -> dict:
+    """Phase 13a: ``compute_packed_resident`` over a year on the card; see
+    the module docstring. Returns the kernels line's entry for the tiled
+    kernel on the year's batches."""
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        config, pipeline)
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        factorplane)
+
+    names = factor_names()
+    n_days = YEAR_BATCHES * YEAR_DAYS
+    # one batch's f32 bars at a time: the year is kept only as its packed
+    # buffers (cases.Year makes each batch anew from its seed per pass)
+    t0 = time.perf_counter()
+    year = cases.Year(YEAR_SEED, YEAR_BATCHES, YEAR_DAYS, TICKERS)
+    bufs, spec, kind = cases.encode_year(year)
+    t_synth = time.perf_counter() - t0
+    if kind != "wire" or len(bufs) != YEAR_BATCHES:
+        fail(f"phase 13a: the year encoded as {kind!r} in {len(bufs)} "
+             "buffers; expected one wire spec for every batch")
+    nbytes = sum(b.nbytes for b in bufs)
+    log(f"phase 13a input: {YEAR_BATCHES} batches x {YEAR_DAYS} days x "
+        f"{TICKERS} tickers ({n_days} days, cn_ashare_240, "
+        f"bench.make_batch's recipe, seed {YEAR_SEED}) made and encoded "
+        f"under one floor in {t_synth:.2f} s (host): {bufs[0].nbytes} B a "
+        f"buffer, {nbytes / 1e6:.1f} MB the year")
+    host = [torch.from_numpy(b).pin_memory() for b in bufs]
+    del bufs
+
+    def to_card():
+        return [h.to("cuda", non_blocking=True) for h in host]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dbufs = to_card()
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    rolling_cuda.reset_launches()
+    rolling.IMPL_COUNTS.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        ys = pipeline.compute_packed_resident(
+            dbufs, spec, kind, names, rolling_impl="cuda", device="cuda")
+        t_enqueue = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = dict(rolling_cuda.launches)
+    impl_counts = dict(rolling.IMPL_COUNTS)
+    t0 = time.perf_counter()
+    fetched = ys.cpu()
+    t_fetch = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"tiled": YEAR_BATCHES, "rowwise": 0}:
+        fail(f"phase 13a: the resident year launched {launches}; expected "
+             f"the tiled kernel once a batch, {YEAR_BATCHES} in all")
+    if impl_counts != {("cuda", "cuda"): YEAR_BATCHES}:
+        fail(f"phase 13a: rolling impl resolved as {impl_counts}")
+    want_shape = (YEAR_BATCHES, len(names), YEAR_DAYS, TICKERS)
+    if tuple(fetched.shape) != want_shape:
+        fail(f"phase 13a: result {tuple(fetched.shape)}, not {want_shape}")
+    for i, name in enumerate(names):
+        if not bool(torch.isfinite(fetched[:, i]).any()):
+            fail(f"phase 13a: {name} has no finite value in the year")
+    wall = t_enqueue + t_fetch
+    log(f"phase 13a compute_packed_resident (all {len(names)}, "
+        f"rolling_impl=cuda) under set_sync_debug_mode('error'): no host "
+        f"sync inside the call; launches {launches}; enqueue "
+        f"{t_enqueue:.3f} s, one fetch of {fetched.numel() * 4 / 1e6:.1f} "
+        f"MB {t_fetch:.3f} s: {n_days / wall:.1f} days/s over {n_days} "
+        f"days; the year's copy in (pinned, non-blocking) {t_copy:.3f} s; "
+        f"peak {peak / 2**30:.3f} GiB allocated ({card})")
+
+    # the donated handles are dead, and say so under debug_validate
+    if not all(type(b).__name__ == "_DonatedTensor" for b in dbufs):
+        fail("phase 13a: a donated buffer was not released")
+    try:
+        dbufs[0].sum()
+        fail("phase 13a: a donated buffer was usable after the call")
+    except pipeline.DonatedBufferError:
+        pass
+    prev = config.get_config()
+    config.set_config(config.Config(debug_validate=True))
+    try:
+        pipeline.compute_packed_resident(dbufs, spec, kind, names,
+                                         device="cuda")
+        fail("phase 13a: reusing donated buffers did not raise")
+    except pipeline.DonatedBufferError as e:
+        if "argument 0 is a dead buffer" not in str(e):
+            fail(f"phase 13a: the guard's message does not name the "
+                 f"contract: {e}")
+    finally:
+        config.set_config(prev)
+    del dbufs
+
+    # batches 0 and 7 against the per-batch call on fresh copies
+    for i in (0, YEAR_BATCHES - 1):
+        one = pipeline.compute_packed_prepared(
+            host[i].to("cuda", non_blocking=True), spec, kind, names,
+            rolling_impl="cuda", device="cuda")
+        if not cases.same_bits(one.cpu(), fetched[i]):
+            fail(f"phase 13a: resident batch {i} differs from "
+                 "compute_packed_prepared on the same buffer")
+    log(f"phase 13a: batches 0 and {YEAR_BATCHES - 1} bitwise "
+        "compute_packed_prepared on fresh copies of their buffers; the "
+        "donated handles raise DonatedBufferError on use (with "
+        "debug_validate: 'argument 0 is a dead buffer')")
+
+    # the side outputs: the spill floor grown until no batch overflows
+    ys_card = fetched.to("cuda")
+    rspec = rw.ResultWireSpec.for_names(names, days=YEAR_DAYS)
+    grown = []
+    while True:
+        need = 0
+        for i in range(YEAR_BATCHES):
+            _, v = rw.decode_block(
+                rw.encode_block(ys_card[i], rspec).cpu().numpy(),
+                len(names), YEAR_DAYS, TICKERS, rspec.spill_rows,
+                strict=False)
+            if v["overflow"]:
+                need = max(need, v["widened"] + v["overflow"])
+        if not need or len(grown) == 3:
+            break
+        grown.append(rspec.spill_rows)
+        rspec = rspec.grow(need)
+    rolling_cuda.reset_launches()
+    payload, stats = pipeline.compute_packed_resident(
+        to_card(), spec, kind, names, rolling_impl="cuda",
+        result_spec=rspec, factor_stats=True, device="cuda")
+    side_launches = dict(rolling_cuda.launches)
+    if side_launches["tiled"] != YEAR_BATCHES:
+        fail(f"phase 13a side outputs launched {side_launches}")
+    for i in range(YEAR_BATCHES):
+        if not torch.equal(payload[i],
+                           rw.encode_block(ys_card[i], rspec)):
+            fail(f"phase 13a: batch {i}'s payload is not encode_block of "
+                 "its raw slice")
+        if not cases.same_bits(stats[i].cpu(), factorplane.factor_stats_block(
+                ys_card[i]).cpu()):
+            fail(f"phase 13a: batch {i}'s stats are not "
+                 "factor_stats_block of its raw slice")
+    v = hold_wire_and_stats("phase 13a batch 0", names, ys_card[0],
+                            payload[0], stats[0], rspec, YEAR_DAYS)
+    log(f"phase 13a compute_packed_resident(result_spec, factor_stats="
+        f"True): {YEAR_BATCHES} tiled launches; spill floor grown {grown} "
+        f"-> {rspec.spill_rows} rows; each batch's payload "
+        f"({payload.shape[1]} B, {fetched[0].numel() * 4 / payload.shape[1]:.3f}x "
+        f"fewer bytes than its raw block) byte-identical to encode_block of "
+        f"the raw slice, each batch's stats bitwise factor_stats_block; "
+        f"batch 0 decodes within RESULT_BOUNDS ({v['widened']} slices "
+        f"widened, max rel err {v['max_rel_err']:.2e})")
+    del payload, stats, fetched
+
+    # the kernel at the year's batch shape, on batch 0's decoded bars
+    bars, mask = wire.decode(*wire.unpack(host[0].to("cuda"), spec))
+    low = bars[..., 2].reshape(-1, 240).contiguous()
+    high = bars[..., 1].reshape(-1, 240).contiguous()
+    pm = mask.reshape(-1, 240)
+    del bars, mask, ys_card
+    args = rolling.second_moment_inputs(low, high, pm, WINDOW)
+    vmask = rolling._windowed_sum(pm, WINDOW) > WINDOW - 0.5
+    err = hold_to_plain("phase 13a second_moments",
+                        rolling_cuda.second_moments(*args, WINDOW),
+                        rolling_cuda.second_moments_plain(*args, WINDOW),
+                        vmask, 1e-5, 1e-9, constant_row=False)
+    kernel_ms, plain_ms = [], []
+    for dest, fn, clock in (
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms)):
+        dest += clock(lambda: fn(*args, WINDOW))
+    rows = low.shape[0]
+    bound, by, mb, _ = moment_bound(rows, 240)
+    log(f"phase 13a second_moments [{rows}, 240] on batch 0's decoded bars: "
+        f"max_abs_err={err:.3e} vs plain; tiled {spread(kernel_ms)} "
+        f"({bound / np.median(kernel_ms):.0%} of the {bound:.4f} ms bound by "
+        f"{by}, {mb:.1f} MB); plain {spread(plain_ms)}; {launches['tiled']} "
+        f"launches for the year ({card})")
+    return {"launches": launches["tiled"], "max_abs_err": err,
+            "ms": float(np.median(kernel_ms)),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
+            "bound_by": by}
+
+
+def device_busy(events):
+    """(summed, union) microseconds of a torch trace's device work
+    (kernels, copies, fills), and the span from the first to the last."""
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        attribution)
+
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in attribution.DEVICE_EVENT_CATS)
+    total = sum(b - a for a, b in spans)
+    union, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return total, union, (spans[-1][1] - spans[0][0]) if spans else 0.0
+
+
+def profiled_driver(tmp: Path, minute_dir: Path, names, card: str) -> None:
+    """Phase 13b: the CLI's ``compute --profile-dir`` in this process over
+    phase 8's first day files; see the module docstring."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
+        ExposureTable)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        attribution)
+
+    files = sorted(minute_dir.glob("*.parquet"))[:PROFILED_DAYS]
+    days = tmp / "kline13"
+    days.mkdir()
+    for f in files:
+        (days / f.name).symlink_to(f)
+    argv = ["compute", "--minute-dir", str(days), "--days-per-batch",
+            str(DAYS_PER_BATCH), "--quiet"]
+    prof, tel = tmp / "prof13", tmp / "tel13"
+    rc, plain, secs_plain = run_cli(
+        argv + ["--cache", str(tmp / "plain13.parquet")])
+    if rc != 0 or plain["days"] != PROFILED_DAYS:
+        fail(f"phase 13b: compute without the profiler gave {rc}, {plain}")
+    rolling_cuda.reset_launches()
+    rc, out, secs = run_cli(argv + ["--cache", str(tmp / "prof13.parquet"),
+                                    "--profile-dir", str(prof),
+                                    "--telemetry-dir", str(tel)])
+    launches = dict(rolling_cuda.launches)
+    n_batches = -(-PROFILED_DAYS // DAYS_PER_BATCH)
+    if rc != 0 or out["days"] != PROFILED_DAYS:
+        fail(f"phase 13b: compute --profile-dir gave {rc}, {out}")
+    if launches != {"tiled": n_batches, "rowwise": 0}:
+        fail(f"phase 13b: the profiled compute launched {launches}")
+    a = ExposureTable.load(str(tmp / "prof13.parquet"))
+    b = ExposureTable.load(str(tmp / "plain13.parquet"))
+    if list(a.columns) != list(b.columns) or len(a) != len(b) or not all(
+            np.array_equal(a.columns[n].view(np.int32),
+                           b.columns[n].view(np.int32)) for n in names) \
+            or not np.array_equal(a.columns["code"], b.columns["code"]):
+        fail("phase 13b: the profiled run's exposures differ from the run "
+             "without the profiler")
+    trace_files = attribution.find_trace_files(str(prof))
+    s = attribution.summarize_trace_dir(str(prof), top_n=None)
+    block = attribution.device_time_block(str(prof))
+    db = s["device_breakdown"]
+    if len(trace_files) != 1 or not block["available"] \
+            or db["device_events"] == 0:
+        fail(f"phase 13b: {len(trace_files)} trace files, "
+             f"{db['device_events']} device events, available "
+             f"{block['available']}")
+    ops = [r["op"] for r in db["top_ops_us"]]
+    rank = next((i for i, op in enumerate(ops)
+                 if "second_moments_tiled_kernel" in op), None)
+    if rank is None:
+        fail("phase 13b: the tiled kernel is not among the trace's ops")
+    missing = {"io", "grid", "launch", "device"} \
+        - set(s["stage_annotations_us"])
+    if missing:
+        fail(f"phase 13b: stages {sorted(missing)} are not annotated in "
+             f"the trace ({sorted(s['stage_annotations_us'])})")
+    with open(tel / "attribution.json") as fh:
+        report = json.load(fh)
+    if report["trace"]["files"] != 1:
+        fail("phase 13b: attribution.json carries no trace summary")
+    events, _ = attribution.load_trace_events(trace_files[0])
+    total_us, union_us, span_us = device_busy(events)
+    wall_s = report["reconciliation"]["wall_s"]
+    capture_s = report["reconciliation"]["stages"].get("trace_capture", 0)
+    kernel = ops[rank]
+    log(f"phase 13b compute --profile-dir over {PROFILED_DAYS} of phase 8's "
+        f"days ({n_batches} batches, {launches['tiled']} tiled launches): "
+        f"{secs:.3f} s profiled against {secs_plain:.3f} s without, the "
+        f"same bits; {os.path.getsize(trace_files[0]) / 1e6:.1f} MB trace, "
+        f"{db['device_events']} device events; device time by class (ms): "
+        + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in db["by_class_us"].items())
+        + f"; busy {union_us / 1e3:.3f} ms (union; {total_us / 1e3:.3f} "
+        f"summed) of the run's {wall_s:.3f} s wall: "
+        f"{union_us / 1e6 / wall_s:.1%}; of the wall less the capture's own "
+        f"{capture_s:.3f} s: {union_us / 1e6 / (wall_s - capture_s):.1%}; "
+        f"of the span from the first device event to the last: "
+        f"{union_us / span_us:.1%}; {kernel[:60]}... ranks {rank + 1} of "
+        f"{len(ops)} ops at {db['top_ops_us'][rank]['us'] / 1e3:.3f} ms; "
+        f"stages annotated (ms): "
+        + ", ".join(f"{k} {v / 1e3:.1f}"
+                    for k, v in s["stage_annotations_us"].items())
+        + f"; reconciliation ok {report['reconciliation']['ok']} ({card})")
+
+
 def kind_name(card: str) -> str:
     """The card's name from nvidia-smi's ``name, power.limit`` line."""
     return card.split(",")[0].strip()
@@ -2880,6 +3214,9 @@ def main() -> None:
     # 12. factor discovery at full width
     discovery_path(card)
 
+    # 13a. the resident year (13b ran inside phase 8's directory)
+    year_line = resident_year(tables, card)
+
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"
     tpu = "replication_of_minute_frequency_factor_tpu/ops/rolling_pallas.py:113"
@@ -2903,7 +3240,8 @@ def main() -> None:
         **entry,
         "library_ms": None,
     } for name, entry in (("second_moments_stream_snapshot", stream_line),
-                          ("second_moments_serve_block", serve_line))]}),
+                          ("second_moments_serve_block", serve_line),
+                          ("second_moments_resident_year", year_line))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

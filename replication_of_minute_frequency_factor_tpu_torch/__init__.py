@@ -18,7 +18,11 @@ out); the evaluation, :class:`Factor` and :class:`MinFreqFactor`
 the command line (``python -m replication_of_minute_frequency_factor_tpu_torch``);
 and the intraday streaming engine (:class:`StreamEngine`: a day's carry on
 the device, folded minute by minute, with exact and fast snapshots), with
-the packed path's result wire and factor-stats side outputs.
+the packed path's result wire and factor-stats side outputs; the resident
+year loop, :func:`compute_packed_resident` (N device-resident buffers, no
+host round trip, one fetch; the inputs donated on the card); the factor
+server and discovery; the profiler capture and trace attribution, the f64
+oracle as ``backend='numpy'``, and the bundle tools.
 Entry points run on the card unless the caller passes ``device='cpu'``.
 """
 
@@ -28,5 +32,5 @@ from .factor import Factor  # noqa: F401
 from .minfreq import MinFreqFactor  # noqa: F401
 from .pipeline import (  # noqa: F401
     ExposureTable, compute_batch, compute_exposures,
-    compute_exposures_streamed, compute_packed)
+    compute_exposures_streamed, compute_packed, compute_packed_resident)
 from .stream import StreamEngine  # noqa: F401

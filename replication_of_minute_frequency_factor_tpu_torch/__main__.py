@@ -37,10 +37,18 @@ it, both raise):
     python -m replication_of_minute_frequency_factor_tpu_torch \
         --telemetry-dir out/
 
-Still waiting for the slices that port what they drive: the
-``analyze`` subcommand, ``serve --fleet`` (ROADMAP Queue 1 item 7; N > 0
-exits 2), and the ``--backend``, ``--mesh-tickers`` and ``--profile-dir``
-flags.
+    # the same, profiled: a torch.profiler trace into out/prof/, and
+    # the attribution report embeds its per-op-class summary
+    python -m replication_of_minute_frequency_factor_tpu_torch \
+        --telemetry-dir out/ --profile-dir out/prof/
+
+``compute --profile-dir DIR`` captures a trace of the run;
+``compute --backend numpy`` runs the f64 oracle on the host
+(``--backend polars`` exits 2: its harness imports the JAX package).
+
+Still waiting for the slices that port what they drive: the ``analyze``
+subcommand, ``serve --fleet`` (ROADMAP Queue 1 item 7; N > 0 exits 2),
+and ``compute --mesh-tickers`` (multi-GPU runs, item 6).
 """
 
 from __future__ import annotations
@@ -74,10 +82,17 @@ def _add_compute(sub: "argparse._SubParsersAction") -> None:
     p.add_argument("--fixed-quirks", action="store_true",
                    help="use mathematically-intended definitions instead "
                    "of replicating reference quirks Q1-Q4")
+    p.add_argument("--backend", choices=("torch", "numpy", "polars"),
+                   default=None,
+                   help="execution backend: torch (the device pipeline), "
+                        "numpy (the f64 oracle on the host); polars is "
+                        "not ported and exits 2")
     p.add_argument("--rolling-impl", choices=("cuda", "torch"),
                    default=None,
                    help="mmt_ols_* rolling backend: cuda (the hand-written "
                         "Hopper kernel) or torch (its plain version)")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the run here")
     p.add_argument("--retry-failed", action="store_true",
                    help="also recompute the days in <cache>.failures.json "
                         "(a plain rerun only resumes past the cached max "
@@ -306,6 +321,12 @@ def cmd_compute(args: argparse.Namespace) -> int:
               "(see list-factors)", file=sys.stderr)
         return 2
     cfg = Config.from_env()  # honor MFF_* like every other entry point
+    if args.backend is not None:
+        cfg.backend = args.backend
+    if cfg.backend == "polars":
+        from .pipeline import POLARS_REFUSAL
+        print(POLARS_REFUSAL, file=sys.stderr)
+        return 2
     if args.days_per_batch is not None:
         cfg.days_per_batch = args.days_per_batch
     if args.no_wire:
@@ -314,6 +335,8 @@ def cmd_compute(args: argparse.Namespace) -> int:
         cfg.replicate_quirks = False
     if args.rolling_impl is not None:
         cfg.rolling_impl = args.rolling_impl
+    if args.profile_dir is not None:
+        cfg.profile_dir = args.profile_dir
     telemetry_dir = getattr(args, "telemetry_dir", None)
     tel = None
     if telemetry_dir:
@@ -342,9 +365,10 @@ def cmd_compute(args: argparse.Namespace) -> int:
 
 def _write_telemetry(tel, telemetry_dir: str, cfg, table,
                      run_kind: str) -> dict:
-    """The run's bundle plus ``attribution.json`` (stage seconds and the
-    wall-clock reconciliation) into ``telemetry_dir``; prints the
-    end-of-run summary to stderr and returns ``{artifact: path}``."""
+    """The run's bundle plus ``attribution.json`` (stage seconds, the
+    wall-clock reconciliation and, with ``cfg.profile_dir``, the trace's
+    ``trace`` summary) into ``telemetry_dir``; prints the end-of-run
+    summary to stderr and returns ``{artifact: path}``."""
     import os
 
     from .telemetry.attribution import build_report, write_report
@@ -354,6 +378,7 @@ def _write_telemetry(tel, telemetry_dir: str, cfg, table,
     report = build_report(table.timings,
                           reconciliation=getattr(table, "reconciliation",
                                                  None),
+                          profile_dir=cfg.profile_dir,
                           tolerance=cfg.attribution_tolerance)
     paths["attribution"] = write_report(
         os.path.join(telemetry_dir, "attribution.json"), report)
@@ -362,11 +387,14 @@ def _write_telemetry(tel, telemetry_dir: str, cfg, table,
 
 
 def run_synthetic_pipeline(telemetry_dir: str, n_days: int = 3,
-                           n_codes: int = 16, device=None) -> int:
+                           n_codes: int = 16, device=None,
+                           profile_dir: Optional[str] = None) -> int:
     """Zero-setup observability demo: synthesize a few day files, run the
     REAL device pipeline over them (grid + wire-encode + factor graph +
     cache-shaped fetch), and write the telemetry bundle plus an
-    attribution report into ``telemetry_dir``."""
+    attribution report into ``telemetry_dir``. With ``profile_dir`` the
+    run sits inside a crash-safe ``torch.profiler`` capture and the
+    report embeds the post-processed per-op-class trace summary."""
     import os
     import tempfile
 
@@ -397,6 +425,8 @@ def run_synthetic_pipeline(telemetry_dir: str, n_days: int = 3,
         cfg = Config.from_env()
         cfg.minute_dir = md
         cfg.days_per_batch = 2
+        if profile_dir:
+            cfg.profile_dir = profile_dir
         table = compute_exposures(md, names, cfg=cfg, progress=False,
                                   telemetry=tel, device=device)
     paths = _write_telemetry(tel, telemetry_dir, cfg, table,
@@ -540,6 +570,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "pipeline and write its telemetry bundle into "
                          "DIR (with `compute`, pass the flag after the "
                          "subcommand)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="with --telemetry-dir and no subcommand: wrap the "
+                         "synthetic demo in a crash-safe torch.profiler "
+                         "capture into DIR and embed the post-processed "
+                         "trace summary in the attribution report")
     ap.add_argument("--device", dest="demo_device", default=None,
                     help="with --telemetry-dir and no subcommand: the "
                          "torch device the demo runs on (default: cuda, "
@@ -554,7 +589,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.cmd is None:
         if args.telemetry_dir:
             return run_synthetic_pipeline(args.telemetry_dir,
-                                          device=args.demo_device)
+                                          device=args.demo_device,
+                                          profile_dir=args.profile_dir)
         ap.error("a subcommand is required (or --telemetry-dir DIR for "
                  "the synthetic telemetry demo)")
     return {"compute": cmd_compute, "evaluate": cmd_evaluate,

@@ -1,6 +1,6 @@
 """Typed configuration: the fields of the JAX package's ``Config`` that
-the port reads so far, with the same defaults and environment
-overrides."""
+the port reads, with the same defaults and environment overrides (the
+backend's default names the port's device path)."""
 
 from __future__ import annotations
 
@@ -12,12 +12,12 @@ from typing import Optional
 @dataclasses.dataclass
 class Config:
     """The JAX package's ``Config``, minus the fields the port does not
-    take yet, which a caller cannot set (``Config(mesh_shape=...)`` is a
+    take, which a caller cannot set (``Config(mesh_shape=...)`` is a
     TypeError): ``mesh_shape`` waits for multi-GPU runs (ROADMAP Queue 1
-    item 6), ``profile_dir`` for the profiler capture (item 4), and
-    ``backend`` for the numpy/polars backends (item 7). The XLA knobs
-    (``compile_telemetry``, ``compilation_cache_dir``, ``donate_buffers``)
-    have no torch counterpart."""
+    item 6); the XLA knobs ``compile_telemetry`` and
+    ``compilation_cache_dir`` have no torch counterpart (eager torch
+    compiles nothing). ``backend`` defaults to ``'torch'``, the device
+    path, where the JAX package's default is ``'jax'``."""
 
     # --- data roots ---
     #: directory of per-trading-day minute-bar parquet files
@@ -29,6 +29,11 @@ class Config:
     factor_dir: str = "data/factors"
 
     # --- execution ---
+    #: 'torch' (the device pipeline), 'numpy' (the polars-semantics f64
+    #: oracle on the host, oracle/), or 'polars' (refused: the reference
+    #: harness that runs the reference's own kernels imports the JAX
+    #: package)
+    backend: str = "torch"
     #: how many trading days to batch into one device step
     days_per_batch: int = 8
     #: replicate reference quirks Q1-Q4 bit-for-bit (SURVEY.md §2.5).
@@ -49,10 +54,19 @@ class Config:
     #: exact_fold bitwise, stat_fold within STAT_FOLD_BOUNDS, batch_only
     #: the same bits as 'exact'
     finalize_impl: str = "exact"
+    #: donate the resident year's input buffers
+    #: (pipeline.compute_packed_resident): each buffer's storage is
+    #: released once its step is enqueued, so the year's inputs are not
+    #: all live at once; only on the card (on the CPU nothing is donated)
+    donate_buffers: bool = True
     #: index-pool membership parquet enabling cal_final_exposure's
     #: stock_pool= (data/io.py read_stock_pool); None keeps the
     #: reference's only-'full' behaviour (quirk Q9)
     stock_pool_path: Optional[str] = None
+    #: capture a torch.profiler trace of each compute_exposures run into
+    #: this directory (``*.trace.json``, Chrome format; post-process with
+    #: telemetry.attribution.summarize_trace_dir); None = off
+    profile_dir: Optional[str] = None
     #: wall-clock reconciliation gate: the fraction of a run's wall time
     #: allowed to stay unattributed (no stage accounts for it) before
     #: the run is flagged (telemetry.attribution)
@@ -74,9 +88,11 @@ class Config:
             "MFF_MINUTE_DIR": "minute_dir",
             "MFF_DAILY_PV_PATH": "daily_pv_path",
             "MFF_FACTOR_DIR": "factor_dir",
+            "MFF_BACKEND": "backend",
             "MFF_ROLLING_IMPL": "rolling_impl",
             "MFF_FINALIZE_IMPL": "finalize_impl",
             "MFF_STOCK_POOL_PATH": "stock_pool_path",
+            "MFF_PROFILE_DIR": "profile_dir",
         }
         for env, field in mapping.items():
             if env in os.environ:
@@ -85,6 +101,9 @@ class Config:
             cfg.days_per_batch = int(os.environ["MFF_DAYS_PER_BATCH"])
         if "MFF_REPLICATE_QUIRKS" in os.environ:
             cfg.replicate_quirks = os.environ["MFF_REPLICATE_QUIRKS"] not in (
+                "0", "false", "False")
+        if "MFF_DONATE_BUFFERS" in os.environ:
+            cfg.donate_buffers = os.environ["MFF_DONATE_BUFFERS"] not in (
                 "0", "false", "False")
         if "MFF_ATTRIBUTION_TOLERANCE" in os.environ:
             cfg.attribution_tolerance = float(

@@ -38,6 +38,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.upload import to_device
+
 #: int16 NaN sentinel (decodes to NaN; never produced by quantization)
 Q_NAN = -32768
 #: quantized lanes land in [-Q_LIM, Q_LIM]
@@ -199,8 +201,8 @@ def encode_block(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
     hi = torch.where(has_finite, hi, 0.0)
     rng = hi - lo
     degenerate = rng <= 0.0
-    inv_steps = torch.tensor(np.float32(1.0) / np.float32(Q_STEPS),
-                             device=dev)
+    inv_steps = torch.full((), float(np.float32(1.0) / np.float32(Q_STEPS)),
+                           dtype=torch.float32, device=dev)
     scale = torch.where(degenerate, 1.0, rng * inv_steps)
     offset = lo
     qf = torch.round((x - offset[..., None]) / scale[..., None])
@@ -211,12 +213,13 @@ def encode_block(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
     xr = xr * scale[..., None]
     xr = xr + offset[..., None]
     err = (xr - x).abs()
-    rtol = torch.tensor([b[0] for b in spec.bounds], dtype=torch.float32,
-                        device=dev)[:, None, None]
-    atol_rel = torch.tensor([b[1] for b in spec.bounds],
-                            dtype=torch.float32, device=dev)[:, None, None]
-    force = torch.tensor([b[2] for b in spec.bounds], dtype=torch.bool,
-                         device=dev)[:, None]
+    # the bounds go up without a host wait (utils/upload.py)
+    rtol = to_device([b[0] for b in spec.bounds], dev,
+                     torch.float32)[:, None, None]
+    atol_rel = to_device([b[1] for b in spec.bounds], dev,
+                         torch.float32)[:, None, None]
+    force = to_device([b[2] for b in spec.bounds], dev,
+                      torch.bool)[:, None]
     bound = atol_rel * rng[..., None]
     bound = bound + rtol * x.abs()
     lane_bad = finite & ~(err <= bound)
@@ -238,6 +241,15 @@ def encode_block(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
                         device=dev)
     spill[target] = x.reshape(-1, t)
     return _pack_device((q, scale, offset, sidx, spill[:spec.spill_rows]))
+
+
+def encode_stacked(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
+    """``[N, F, D, T]`` -> ``[N, L]`` uint8: one :func:`encode_block` for
+    each leading slice (the JAX package's ``vmap`` of it)."""
+    if x.dim() != 4:
+        raise ValueError(f"encode_stacked takes [N, F, D, T], not "
+                         f"{tuple(x.shape)}")
+    return torch.stack([encode_block(b, spec) for b in x])
 
 
 # --------------------------------------------------------------------------

@@ -258,8 +258,8 @@ def decode(base, dclose, dohl, volume, maskbits, vol_scale):
         lt = ct + d[..., 2]
     # the f32 reciprocal of the tick count: the multiplier XLA puts in
     # place of the JAX package's division (module docstring)
-    scale = torch.tensor(1.0 / TICKS_PER_UNIT, dtype=torch.float32,
-                         device=dev)
+    scale = torch.full((), 1.0 / TICKS_PER_UNIT, dtype=torch.float32,
+                       device=dev)
     close, open_, high, low = (t.to(torch.float32) * scale
                                for t in (ct, ot, ht, lt))
     if n_slots % 4 == 0 and volume.dtype == torch.uint8 \

@@ -24,6 +24,7 @@ from ..ops import (
     rank_average,
     rolling_window_stats,
 )
+from ..utils.upload import to_device
 
 
 class DayContext:
@@ -67,8 +68,7 @@ class DayContext:
         self._memo = dict(inject) if inject else {}
         #: HHMMSSmmm per slot (int64, on the bars' device), broadcastable
         #: against [..., T, S]
-        self.times = torch.tensor(self.session.grid_times,
-                                  device=bars.device)
+        self.times = to_device(self.session.grid_times, bars.device)
 
     # --- raw fields -----------------------------------------------------
     @property

@@ -18,6 +18,11 @@ ledger. The packed path takes the JAX package's two side outputs: the
 result wire (:mod:`.data.result_wire`, the block quantized on the device)
 and the factor-stats sketch (:mod:`.telemetry.factorplane`).
 
+:func:`compute_packed_resident` is the JAX package's resident year loop:
+N device-resident packed buffers through the same body, one after
+another with no host round trip, into one preallocated result fetched
+once; on the card it donates its input buffers.
+
 :func:`compute_exposures_streamed` folds one day through the streaming
 engine (:mod:`.stream`).
 """
@@ -128,16 +133,35 @@ def compute_packed_prepared(buf, spec, kind: str,
     of the raw stack, taken before the encode: the return is then
     ``(result, stats)``. Neither changes the exposures' bits.
     """
-    if kind not in ("wire", "raw"):
-        raise ValueError(f"kind must be 'wire' or 'raw', not {kind!r}")
+    _check_kind(kind)
     dev = resolve_device(device)
     if isinstance(buf, torch.Tensor):
-        if buf.dtype != torch.uint8 or buf.dim() != 1:
-            raise ValueError(f"buf is a {buf.dtype} tensor of shape "
-                             f"{tuple(buf.shape)}, expected 1-D uint8")
+        _check_buffer(buf, "buf")
         buf = buf.to(dev, non_blocking=True)
     else:
         buf = torch.from_numpy(np.ascontiguousarray(buf, np.uint8)).to(dev)
+    return _packed_step(buf, spec, kind, names, replicate_quirks,
+                        rolling_impl, result_spec, factor_stats, session)
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ("wire", "raw"):
+        raise ValueError(f"kind must be 'wire' or 'raw', not {kind!r}")
+
+
+def _check_buffer(buf: torch.Tensor, what: str) -> None:
+    if buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise ValueError(f"{what} is a {buf.dtype} tensor of shape "
+                         f"{tuple(buf.shape)}, expected 1-D uint8")
+
+
+def _packed_step(buf, spec, kind, names, replicate_quirks, rolling_impl,
+                 result_spec, factor_stats, session):
+    """The packed path's body on a device buffer: unpack, decode when
+    ``kind='wire'`` (``'raw'`` ships ``(bars f32, mask uint8)``), the
+    named factors stacked to ``[F, D, T]``, and the side outputs. One
+    function for the per-batch call and each step of the resident loop,
+    so a resident step is bitwise the per-batch call by construction."""
     arrs = wire.unpack(buf, spec)
     if kind == "wire":
         bars, mask = wire.decode(*arrs)
@@ -176,6 +200,153 @@ def compute_packed(arrays, kind: str, names: Optional[Sequence[str]] = None,
     return compute_packed_prepared(
         buf, spec, kind, names, replicate_quirks, rolling_impl,
         result_spec, factor_stats, session=session, device=device)
+
+
+class DonatedBufferError(RuntimeError):
+    """A device buffer was reused after :func:`compute_packed_resident`
+    donated it (``Config.donate_buffers`` on the card): by the first
+    torch call on the handle, or, under ``Config.debug_validate``, by
+    the next entry point with the argument and the contract named."""
+
+
+def _donate_device_buffers(cfg: Optional[Config] = None,
+                           device=None) -> bool:
+    """Whether the resident loop donates its input buffers: gated by
+    ``Config.donate_buffers`` AND the card. On the CPU nothing is
+    donated, as in the JAX package, so tests keep their buffers."""
+    cfg = cfg or get_config()
+    return bool(cfg.donate_buffers) and device is not None \
+        and torch.device(device).type == "cuda"
+
+
+class _DonatedTensor(torch.Tensor):
+    """The class a donated buffer's handle takes once its storage is
+    released: every torch function on it raises
+    :class:`DonatedBufferError`. A tensor whose storage was only resized
+    to 0 would not fail loudly: elementwise kernels read its null data
+    pointer (a segfault on the CPU, an illegal address on the card)."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.__repr__:
+            return "<a donated buffer, released>"
+        raise DonatedBufferError(
+            f"{getattr(func, '__name__', func)} on a buffer that "
+            "compute_packed_resident donated (Config.donate_buffers): its "
+            "storage was released and the handle is dead to the caller")
+
+
+def _guard_donated_args(arrs, caller: str,
+                        cfg: Optional[Config] = None) -> None:
+    """``Config.debug_validate`` guard of the donation contract: a buffer
+    that an earlier call donated is caught at the NEXT entry with a
+    message that names the argument and the contract. Without the guard
+    the first torch call on the handle raises the same error class with
+    a shorter message. Gated, as in the JAX package."""
+    cfg = cfg or get_config()
+    if not cfg.debug_validate:
+        return
+    for i, a in enumerate(arrs):
+        if isinstance(a, _DonatedTensor):
+            raise DonatedBufferError(
+                f"{caller}: argument {i} is a dead buffer — an earlier "
+                "call donated it (Config.donate_buffers; the buffer is "
+                "dead to the caller, see compute_packed_resident's "
+                "docstring). Copy a fresh buffer to the device instead "
+                "of reusing the donated handle.")
+
+
+def _invalidate_donated(arrs) -> None:
+    """Release each buffer's storage (``untyped_storage().resize_(0)``)
+    and mark its handle dead (:class:`_DonatedTensor`). The memory goes
+    back to the caching allocator, which is stream-ordered: kernels
+    already enqueued on the current stream still read the bytes. A
+    buffer that may have been made on another stream (a copy stream) is
+    first recorded on the current one, so its block is not handed out
+    while the current stream may still read it."""
+    for a in arrs:
+        if a.is_cuda:
+            a.record_stream(torch.cuda.current_stream(a.device))
+        a.untyped_storage().resize_(0)
+        a.__class__ = _DonatedTensor
+
+
+def compute_packed_resident(dbufs, spec, kind: str,
+                            names: Optional[Sequence[str]] = None,
+                            replicate_quirks: Optional[bool] = None,
+                            rolling_impl: Optional[str] = None,
+                            result_spec=None, factor_stats=False,
+                            session=None, device=None):
+    """N device-resident packed buffers through the packed path, one
+    after another on the current stream, with no host round trip in
+    between; the stacked result stays on the device (fetch it once).
+
+    ``dbufs`` is a sequence of 1-D uint8 tensors on ``device`` that all
+    share ``spec`` (encode with one shared widen-only ``floor``; see
+    ``tests/torch_cases.encode_year``). Each step runs the body of
+    :func:`compute_packed_prepared` (so it is bitwise that call on the
+    same buffer) and writes into a preallocated output: ``[N, F, D, T]``
+    f32, or ``[N, L]`` uint8 with ``result_spec``, plus ``[N, F, 9]``
+    stats with ``factor_stats`` (the return is then ``(result, stats)``).
+    The inputs are not stacked: that would hold the year's bytes twice.
+
+    The JAX package's scan executable; eager torch enqueues each step's
+    kernels as the loop runs, so nothing is lowered or compiled ahead
+    (the JAX package's ``lower_packed_resident`` has no counterpart).
+
+    On the card (``Config.donate_buffers``) the buffers are DONATED:
+    each one's storage is released once its step is enqueued, so the
+    year's inputs are not all live at once, and the handles are dead to
+    the caller (any reuse raises; ``Config.debug_validate`` turns that
+    into a :class:`DonatedBufferError` naming this contract at the next
+    entry). Copy fresh buffers in rather than reusing donated ones. On
+    the CPU nothing is donated. ``device`` defaults to ``cuda`` and
+    raises when no card is present.
+    """
+    _check_kind(kind)
+    dev = resolve_device(device)
+    cfg = get_config()
+    dbufs = list(dbufs)
+    if not dbufs:
+        raise ValueError("compute_packed_resident needs at least one buffer")
+    _guard_donated_args(dbufs, "compute_packed_resident", cfg)
+    for i, b in enumerate(dbufs):
+        if not isinstance(b, torch.Tensor):
+            raise TypeError(f"dbufs[{i}] is a {type(b).__name__}, expected "
+                            "a device-resident uint8 tensor")
+        _check_buffer(b, f"dbufs[{i}]")
+        if b.device.type != dev.type or (dev.index is not None
+                                          and b.device != dev):
+            raise ValueError(f"dbufs[{i}] is on {b.device}, not {dev}")
+        if b.shape != dbufs[0].shape:
+            raise ValueError(f"dbufs[{i}] has {b.shape[0]} bytes, dbufs[0] "
+                             f"{dbufs[0].shape[0]}: encode the year under "
+                             "one shared floor")
+    donating = _donate_device_buffers(cfg, dev)
+    if donating:
+        for i, b in enumerate(dbufs):
+            if not b.untyped_storage().resizable():
+                raise ValueError(f"dbufs[{i}]'s storage cannot be released; "
+                                 "donate buffers made by a copy to the "
+                                 "device")
+    n = len(dbufs)
+    out = stats = None
+    for i, buf in enumerate(dbufs):
+        step = _packed_step(buf, spec, kind, names, replicate_quirks,
+                            rolling_impl, result_spec, factor_stats,
+                            session)
+        y, st = step if factor_stats else (step, None)
+        if out is None:
+            out = torch.empty((n, *y.shape), dtype=y.dtype, device=y.device)
+            if st is not None:
+                stats = torch.empty((n, *st.shape), dtype=st.dtype,
+                                    device=st.device)
+        out[i] = y
+        if st is not None:
+            stats[i] = st
+        if donating:
+            _invalidate_donated((buf,))
+    return (out, stats) if factor_stats else out
 
 
 #: ticker-axis bucket size: T pads up to a multiple, so every batch of a
@@ -739,6 +910,39 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
         raise
 
 
+#: ``Config.backend`` values: the device pipeline, the host oracle, and
+#: the reference's own kernels (refused, :data:`POLARS_REFUSAL`)
+BACKENDS = ("torch", "numpy", "polars")
+
+POLARS_REFUSAL = (
+    "backend='polars' is not ported: it runs the reference's own kernels "
+    "through tools/refdiff, whose harness imports the JAX package, and "
+    "the port imports none of it (ROADMAP Queue 1 item 7); "
+    "backend='numpy' runs the f64 oracle")
+
+
+def _run_oracle(batches, names, parts: List[ExposureTable]) -> None:
+    """The numpy backend: the f64 oracle (:mod:`.oracle`, the reference's
+    polars semantics) over each day's long-format rows on the host, one
+    table part a day."""
+    import pandas as pd
+
+    from .oracle import compute_oracle
+
+    for batch in batches:
+        for date, d in batch:
+            df = pd.DataFrame(
+                {k: d[k] for k in ("code", "time", "open", "high", "low",
+                                   "close", "volume")})
+            df["date"] = date
+            wide = compute_oracle(df, names)
+            cols = {"code": wide["code"].to_numpy(dtype=object),
+                    "date": np.full(len(wide), date, "datetime64[D]")}
+            for n in names:
+                cols[n] = wide[n].to_numpy(np.float32)
+            parts.append(ExposureTable(cols))
+
+
 def _topup_missing_factors(cached, missing, all_files, minute_dir,
                            cache_path, cfg, progress, fault_hook, device):
     """Column top-up when a cache lacks some requested factors: compute
@@ -837,10 +1041,31 @@ def compute_exposures(
     * the returned table carries ``.timings`` (per-stage seconds:
       ``io``, ``grid``, ``wire_encode``, ``pack``, ``launch``,
       ``device``, and ``save`` when a cache is written) and ``.reconciliation`` (stage sum vs wall with the
-      ``unattributed_s`` residual explicit — telemetry.attribution).
+      ``unattributed_s`` residual explicit — telemetry.attribution);
+      with ``cfg.profile_dir`` set the whole run sits inside a crash-safe
+      ``torch.profiler`` capture (``telemetry.attribution.TraceCapture``)
+      whose Chrome trace lands in that directory;
+    * ``cfg.backend`` picks the path: ``'torch'`` the device pipeline,
+      ``'numpy'`` the f64 oracle (:mod:`.oracle`) over each day on the
+      host (no card needed), ``'polars'`` raises NotImplementedError.
     """
     cfg = cfg or get_config()
-    dev = resolve_device(device)
+    if cfg.backend not in BACKENDS:
+        # a typo'd backend must not silently run the device pipeline — a
+        # numpy-vs-device differential would then vacuously pass
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{cfg.backend!r}")
+    if cfg.backend == "polars":
+        raise NotImplementedError(POLARS_REFUSAL)
+    if cfg.backend != "torch" and not cfg.replicate_quirks:
+        # the oracle can only produce the quirked values; caching them as
+        # 'fixed' would poison a later fixed-quirks comparison
+        raise ValueError(
+            "replicate_quirks=False (--fixed-quirks) exists only on the "
+            "torch backend; the numpy backend reproduces the reference's "
+            "quirked semantics by construction")
+    # the oracle runs on the host: only the device path needs the card
+    dev = resolve_device(device) if cfg.backend == "torch" else None
     minute_dir = minute_dir or cfg.minute_dir
     names = tuple(names) if names is not None else factor_names()
 
@@ -899,6 +1124,10 @@ def compute_exposures(
     # rolling_impl label says which rolling backend a run's time is for
     timer = tel.stage_timer(rolling_impl=cfg.rolling_impl)
     parts: List[ExposureTable] = []
+    # crash-safe capture window: the profiler stops and exports its trace
+    # on EVERY exit, per-day failure isolation and aborts included
+    trace = _attribution.TraceCapture(cfg.profile_dir if files else None,
+                                      telemetry=tel, timer=timer)
     iterator: Sequence = files
     if progress and files:
         try:
@@ -908,19 +1137,22 @@ def compute_exposures(
             pass
 
     t0 = time.perf_counter()
+    # the device pipeline keeps integer codes integer through the grid
+    # (normalized once at the batch axis, _grid_batch); the oracle joins
+    # on code STRINGS and needs the normalizing reader
+    reader = (dio.read_minute_day_raw if cfg.backend == "torch"
+              else dio.read_minute_day)
 
     def read_batches():
         """Yield lists of (date, day-columns), one list per device batch,
-        with per-day failure isolation. The raw reader keeps integer
-        codes integer through the grid (normalized once at the batch
-        axis, _grid_batch)."""
+        with per-day failure isolation."""
         batch: List[Tuple[np.datetime64, Dict[str, np.ndarray]]] = []
         for date, path in iterator:
             try:
                 if fault_hook is not None:
                     fault_hook(date)
                 with timer("io"):
-                    day = dio.read_minute_day_raw(path)
+                    day = reader(path)
                 if len(day["code"]) == 0:
                     raise ValueError("empty day file")
                 batch.append((date, day))
@@ -934,11 +1166,18 @@ def compute_exposures(
         if batch:
             yield batch
 
+    def dispatch_backend():
+        if cfg.backend == "numpy":
+            _run_oracle(read_batches(), names, parts)
+        else:
+            _run_device_pipeline(read_batches(), names, cfg, timer, parts,
+                                 failures=failures,
+                                 path_of={str(d): p for d, p in files},
+                                 telemetry=tel, device=dev)
+
     try:
-        _run_device_pipeline(read_batches(), names, cfg, timer, parts,
-                             failures=failures,
-                             path_of={str(d): p for d, p in files},
-                             telemetry=tel, device=dev)
+        with trace:  # the trace is exported on every exit path
+            dispatch_backend()
     except Exception as e:  # noqa: BLE001 — crash-consistent save below
         # preserve every completed batch before re-raising: parts hold
         # whole days only, so the cache written below is resume-safe and

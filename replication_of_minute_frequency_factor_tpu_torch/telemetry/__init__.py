@@ -23,10 +23,12 @@ dict-update cost; anything that wants an isolated stream (tests, a
 server) builds its own ``Telemetry`` and passes it down or installs it
 via ``set_telemetry``. ``python -m
 replication_of_minute_frequency_factor_tpu_torch --telemetry-dir DIR``
-writes the whole bundle to disk. The JAX package's pod aggregation,
-regression gate, bundle validator and profiler trace capture
-(``aggregate``, ``regress``, ``validate``, ``TraceCapture``) are not
-ported yet.
+writes the whole bundle to disk; ``python -m
+replication_of_minute_frequency_factor_tpu_torch.telemetry.validate DIR``
+checks one and ``...telemetry.aggregate D0 D1 --out POD`` merges several
+(:mod:`.validate`, :mod:`.aggregate`). The profiler capture and the trace
+attribution are :mod:`.attribution`. The JAX package's regression gate
+(``regress``) waits for the port's bench, whose records are its input.
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ rtol 1e-4 / atol 1e-6 (plus the 6-decimal rounding both print).
 ``list-factors`` prints the same text; an unknown factor exits 2; a PV
 table disjoint from the cache gives null statistics; ``doctor`` reports
 the runtime and exits 1 without a card; the flags of slices not yet ported
-are rejected by argparse.
+are rejected by argparse. ``compute --backend numpy`` gives the JAX CLI's
+numbers bitwise, ``--backend polars`` exits 2 with its reason, and
+``compute --profile-dir``/the bare ``--telemetry-dir --profile-dir`` demo
+leave a trace whose summary the attribution report embeds.
 """
 
 import json
@@ -159,9 +162,9 @@ def test_the_cli_refuses_the_cpu_unless_asked(workspace, capsys,
 
 
 @pytest.mark.parametrize("argv", [
-    ["compute", "--minute-dir", "d", "--cache", "c", "--backend", "numpy"],
+    ["compute", "--minute-dir", "d", "--cache", "c", "--backend", "jax"],
     ["compute", "--minute-dir", "d", "--cache", "c", "--mesh-tickers", "2"],
-    ["compute", "--minute-dir", "d", "--cache", "c", "--profile-dir", "p"],
+    ["compute", "--minute-dir", "d", "--cache", "c", "--profile-dir"],
     ["--profile-dir", "p"],
     ["compute", "--minute-dir", "d", "--cache", "c", "--rolling-impl",
      "pallas"],
@@ -207,3 +210,80 @@ def test_compute_telemetry_dir_writes_the_bundle(workspace, capsys):
     assert validate_dir(out_dir)["ok"]
     with open(os.path.join(out_dir, "manifest.json")) as fh:
         assert json.load(fh)["run_kind"] == "compute"
+
+
+def test_compute_backend_numpy_matches_the_jax_cli(workspace, capsys):
+    """``compute --backend numpy`` through both CLIs: the same summary and
+    the same cache, bit for bit."""
+    from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
+        ExposureTable)
+    kline, _pv, cache, _tmp = workspace
+    port, ref = _both(capsys, [
+        "compute", "--minute-dir", kline, "--cache", "CACHE", "--factors",
+        "vol_return1min,mmt_ols_qrs,doc_pdf80", "--backend", "numpy",
+        "--quiet"], cache)
+    assert {k: port[k] for k in port if k != "cache"} \
+        == {k: ref[k] for k in ref if k != "cache"}
+    a = ExposureTable.load(cache + ".port")
+    b = ExposureTable.load(cache + ".jax")
+    assert list(a.columns) == list(b.columns)
+    for k in a.factor_names:
+        np.testing.assert_array_equal(a.columns[k].view(np.int32),
+                                      b.columns[k].view(np.int32), err_msg=k)
+
+
+def test_compute_backend_polars_exits_2_with_the_reason(workspace, capsys):
+    kline, _pv, cache, _tmp = workspace
+    assert main(["compute", "--minute-dir", kline, "--cache", cache,
+                 "--backend", "polars", "--device", "cpu"]) == 2
+    assert "imports the JAX package" in capsys.readouterr().err
+    assert not os.path.exists(cache)
+
+
+def test_compute_profile_dir_writes_a_trace_the_report_reads(workspace,
+                                                            capsys):
+    """``compute --profile-dir P --telemetry-dir T``: a torch.profiler
+    trace in P, the bundle in T (the JAX validator accepts it), and
+    attribution.json's ``trace`` block the summary of P, with the
+    driver's stages among its annotations."""
+    from replication_of_minute_frequency_factor_tpu.telemetry.validate import (
+        validate_dir)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        attribution)
+    kline, _pv, cache, tmp = workspace
+    prof, tel = os.path.join(str(tmp), "prof"), os.path.join(str(tmp), "tel")
+    assert main(["compute", "--minute-dir", kline, "--cache", cache,
+                 "--factors", "mmt_am", "--quiet", "--device", "cpu",
+                 "--profile-dir", prof, "--telemetry-dir", tel]) == 0
+    assert _last_json(capsys)["days"] == 8
+    files = attribution.find_trace_files(prof)
+    assert len(files) == 1 and files[0].endswith(".trace.json")
+    assert validate_dir(tel)["ok"]
+    with open(os.path.join(tel, "attribution.json")) as fh:
+        report = json.load(fh)
+    assert report["trace"]["files"] == 1
+    assert {"io", "grid", "launch", "device"} <= set(
+        report["trace"]["stage_annotations_us"])
+    assert report["trace"]["device_breakdown"]["device_events"] == 0
+    assert "trace_capture" in report["reconciliation"]["stages"]
+
+
+def test_bare_telemetry_dir_with_profile_dir_embeds_the_trace(tmp_path,
+                                                              capsys):
+    """The synthetic demo under a capture, as the JAX CLI's: the report
+    embeds the trace summary and the bundle validates with both
+    packages' validators."""
+    from replication_of_minute_frequency_factor_tpu.telemetry.validate import (
+        validate_dir as jax_validate_dir)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry.validate import (
+        validate_dir)
+    tel, prof = str(tmp_path / "tel"), str(tmp_path / "prof")
+    assert main(["--telemetry-dir", tel, "--profile-dir", prof,
+                 "--device", "cpu"]) == 0
+    out = _last_json(capsys)
+    assert out["reconciliation_ok"]
+    with open(out["telemetry"]["attribution"]) as fh:
+        report = json.load(fh)
+    assert report["trace"]["files"] == 1
+    assert report["trace"]["profile_dir"] == prof
+    assert validate_dir(tel)["ok"] and jax_validate_dir(tel)["ok"]

@@ -7,7 +7,10 @@ torch, held card against CPU bit for bit (the CPU path is the one the
 other tests hold against the JAX package). The host driver's card path
 (pinned buffers, the copy stream, the result fetch) is held against its
 CPU run at tests/test_parity.py's tolerances, through ``chip_smoke.py``'s
-comparator, and against an injected launch failure.
+comparator, and against an injected launch failure. The resident year
+loop is enqueued without a host sync, donates its buffers and matches its
+CPU run; a ``TraceCapture`` on the card sees device time and names the
+tiled kernel.
 The module imports neither jax nor the JAX package, so on a machine with
 the card and without jax the tests run alone, past the jax set-up in
 conftest.py:
@@ -658,3 +661,108 @@ def test_served_discovered_factor_on_the_card_matches_make_kernel(
     a = np.asarray(got["exposures"][name], np.float32)
     assert np.array_equal(np.isnan(a), np.isnan(want))
     np.testing.assert_allclose(a, want, rtol=1e-5, atol=1e-6)
+
+
+def _resident_year(n=3, days=4, tickers=256, seed=61):
+    """A small year of ``bench.make_batch`` batches under one shared
+    floor (``torch_cases.encode_year``)."""
+    from torch_cases import Year, encode_year
+    bufs, spec, kind = encode_year(Year(seed, n, days, tickers))
+    assert kind == "wire"
+    return bufs, spec
+
+
+def _to_card(bufs):
+    """Device-resident copies, from pinned memory without a wait."""
+    return [torch.from_numpy(b).pin_memory().to("cuda", non_blocking=True)
+            for b in bufs]
+
+
+@pytest.mark.cuda
+def test_resident_year_launches_without_a_sync_and_donates():
+    """The resident loop enqueues every step with no device wait
+    (``set_sync_debug_mode("error")`` around the call), launches the tiled
+    kernel once a batch, releases each donated buffer (any reuse raises
+    ``DonatedBufferError``), and each step is bitwise the per-batch call
+    on a fresh copy of its buffer."""
+    _card()
+    names = factor_names()
+    bufs, spec = _resident_year()
+    pl.compute_packed_prepared(bufs[0], spec, "wire", names[:4])  # warm
+    dbufs = _to_card(bufs)
+    torch.cuda.synchronize()
+    before = dict(rolling_cuda.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = pl.compute_packed_resident(dbufs, spec, "wire", names,
+                                        rolling_impl="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _launched(before) == {"tiled": len(bufs), "rowwise": 0}
+    host = ys.cpu()
+    assert tuple(host.shape) == (len(bufs), len(names), 4, 256)
+    for b in dbufs:
+        with pytest.raises(pl.DonatedBufferError):
+            b.sum()
+    with pytest.raises(pl.DonatedBufferError):
+        pl.compute_packed_resident(dbufs, spec, "wire", names)
+    for i in (0, len(bufs) - 1):
+        one = pl.compute_packed_prepared(_to_card(bufs[i:i + 1])[0], spec,
+                                         "wire", names, rolling_impl="cuda")
+        assert same_bits(one.cpu(), host[i])
+
+
+@pytest.mark.cuda
+def test_resident_year_on_the_card_matches_the_cpu():
+    """The same year on the card and on the CPU: each batch's block within
+    tests/test_parity.py's tolerances (chip_smoke's comparator), doc_pdf*
+    exact off the threshold's edge band."""
+    _card()
+    smoke = _smoke()
+    names = factor_names()
+    bufs, spec = _resident_year(seed=67)
+    got = pl.compute_packed_resident(_to_card(bufs), spec, "wire", names,
+                                     rolling_impl="cuda").cpu()
+    want = pl.compute_packed_resident(
+        [torch.from_numpy(b).clone() for b in bufs], spec, "wire", names,
+        device="cpu")
+    tables = smoke.parity_tables()
+    for i, b in enumerate(bufs):
+        bars, mask = wire.decode(*wire.unpack(torch.from_numpy(b), spec))
+        ctx = DayContext(bars, mask, rolling_impl="torch")
+        kurt = {n: want[i, names.index(n)].double().numpy()
+                for n in ("shape_kurt", "shape_kurtVol")}
+        smoke.compare_blocks(f"resident batch {i}", names, got[i], want[i],
+                             tables, ctx.beta_moments()[:3], kurt=kurt,
+                             pdf_ctx=ctx)
+
+
+@pytest.mark.cuda
+def test_trace_capture_on_the_card_names_the_kernel(tmp_path):
+    """A capture around the packed path on the card: device time is
+    available, the tiled kernel is among the ops, the stage annotation is
+    read, and the capture exported one trace."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        attribution)
+    names = factor_names()
+    bufs, spec = _resident_year(n=1, seed=71)
+    pl.compute_packed_prepared(bufs[0], spec, "wire", names[:4])  # warm
+    tel = Telemetry()
+    timer = tel.stage_timer()
+    pdir = str(tmp_path / "prof")
+    with attribution.TraceCapture(pdir, telemetry=tel) as cap:
+        with timer("launch"):
+            out = pl.compute_packed_prepared(bufs[0], spec, "wire", names,
+                                             rolling_impl="cuda")
+        with timer("device"):
+            torch.cuda.synchronize()
+    assert out.is_cuda and cap.path is not None
+    block = attribution.device_time_block(pdir)
+    assert block["available"] is True and block["device_time_s"] > 0
+    s = attribution.summarize_trace_dir(pdir, top_n=None)
+    ops = [r["op"] for r in s["device_breakdown"]["top_ops_us"]]
+    assert any("second_moments_tiled_kernel" in op for op in ops)
+    assert {"launch", "device"} <= set(s["stage_annotations_us"])
+    assert {"fusion", "reduction", "sort_scan"} <= set(block["by_class_s"])
+    assert tel.registry.counter_value("attribution.trace_captures") == 1

@@ -196,9 +196,8 @@ def test_wire_unrepresentable_day_falls_back_to_raw(tmp_path, rng):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (1, 2)), ("profile_dir", "trace"),
-    ("compile_telemetry", True), ("compilation_cache_dir", "cache"),
-    ("donate_buffers", False)])
+    ("mesh_shape", (1, 2)), ("compile_telemetry", True),
+    ("compilation_cache_dir", "cache")])
 def test_fields_not_ported_raise(field, value):
     assert hasattr(JConfig(), field)
     with pytest.raises(TypeError, match=field):

@@ -311,3 +311,76 @@ def same_order(a: np.ndarray, b: np.ndarray, valid: np.ndarray
                 out[p] = False
                 break
     return out
+
+
+def make_batch(rng, n_days: int, n_tickers: int, session=None):
+    """``bench.make_batch``'s recipe (the JAX package's headline batch):
+    a close random walk in f32 draws, open/high/low around it,
+    tick-aligned prices, board-lot volume, 2% missing bars. Returns f32
+    bars ``[D, T, S, 5]`` and the bool mask."""
+    from replication_of_minute_frequency_factor_tpu_torch.markets import (
+        get_session)
+
+    shape = (n_days, n_tickers,
+             get_session(session if session is not None
+                         else "cn_ashare_240").n_slots)
+    close = (10.0 * np.exp(np.cumsum(
+        rng.standard_normal(shape, dtype=np.float32) * np.float32(1e-3),
+        axis=-1)))
+    open_ = close * (1 + rng.standard_normal(shape, dtype=np.float32)
+                     * np.float32(1e-4))
+    high = np.maximum(open_, close) * 1.0002
+    low = np.minimum(open_, close) * 0.9998
+    volume = (rng.integers(0, 1000, shape) * 100).astype(np.float32)
+    bars = np.stack([open_, high, low, close, volume], axis=-1)
+    bars[..., :4] = np.round(bars[..., :4], 2)
+    mask = rng.random(shape, dtype=np.float32) > 0.02
+    return bars.astype(np.float32), mask
+
+
+def encode_year(batches, use_wire: bool = True, max_passes: int = 4):
+    """``bench.encode_year``: every batch encoded under ONE shared
+    widen-only floor, passes repeated until all share one spec, so the
+    packed buffers land on a single ``(spec, length)``. Returns
+    ``(buffers, spec, kind)``; ``kind`` is ``'raw'`` when the wire cannot
+    represent the year.
+
+    ``batches`` is iterated once a pass and yields ``(bars, mask)``: a
+    :class:`Year` makes each batch anew from its seed, so the year's f32
+    bars are never all held at once; only the packed buffers are kept."""
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+
+    if use_wire:
+        floor: dict = {}
+        encs = [wire.encode(b, m, floor=floor) for b, m in batches]
+        for _ in range(max_passes):
+            if not all(e is not None for e in encs):
+                break
+            packs = [wire.pack_arrays(e.arrays) for e in encs]
+            if len({p[1] for p in packs}) == 1:
+                return [p[0] for p in packs], packs[0][1], "wire"
+            encs = [wire.encode(b, m, floor=floor) for b, m in batches]
+    packs = [wire.pack_arrays((b, m.view(np.uint8))) for b, m in batches]
+    return [p[0] for p in packs], packs[0][1], "raw"
+
+
+class Year:
+    """``n`` batches of :func:`make_batch`, batch ``i`` made from
+    ``default_rng([seed, i])`` each time it is iterated (a sequence, so
+    :func:`encode_year` can take several passes without holding the f32
+    bars of more than one batch)."""
+
+    def __init__(self, seed: int, n: int, n_days: int, n_tickers: int,
+                 session=None):
+        self.seed, self.n = seed, n
+        self.n_days, self.n_tickers, self.session = (n_days, n_tickers,
+                                                     session)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return make_batch(np.random.default_rng([self.seed, i]),
+                          self.n_days, self.n_tickers, self.session)
