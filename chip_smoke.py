@@ -164,12 +164,46 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    ``launch`` and ``device``; the cache is bitwise a run without the
    profiler; the device time by op class and the device's busy share of
    the wall are printed.
+14. the sharded resident year and the sharded driver, on ranks that are
+   spawned processes sharing the one card (``parallel.launch``; their
+   times are four ranks on one card, not multi-card scaling). 14d's probe
+   first: a two-rank NCCL group's all-reduce (NCCL refuses two ranks on
+   one GPU; if it takes them, 14a/14b run on NCCL and the log says so,
+   else on gloo, each collective staged through pinned host buffers).
+   Batches 0-1 of phase 13a's year are split from their packed buffers
+   (no encode) into 4 ticker shards and a (2, 2) grid of tiles, written
+   to a temporary directory that each rank reads its part of. 14a:
+   ``compute_packed_resident_sharded`` on a (1, 4) mesh, all 58 factors,
+   ``[32, 1250]`` a rank a step, under ``set_sync_debug_mode('error')``
+   (the transport's staging waits counted apart): one tiled launch a rank
+   a step, donated handles raising, the outputs held against phase 13a's
+   (bitwise, the JAX package's ulp pair at 16 eps; a factor off that bar
+   is named with its largest gap and held to the parity tolerances), then
+   with ``result_spec`` and ``factor_stats``: each rank's payload the
+   single-device payload's arrays on its lanes byte for byte, the stats
+   counts/min/max bitwise and moments within 32 eps of their value
+   (the sums are f64, rounded once). 14b:
+   ``compute_packed_resident_2d`` on (2, 2), one batch a call with the
+   carry threaded: the tiles held as in 14a, one ``carry_handoff``
+   dispatch a call, the year-end carry on every rank bitwise the
+   single-device span fold. 14c, inside phase 8's directory right after
+   13b: the CLI's ``compute --mesh-tickers 2`` over 16 of phase 8's day
+   files, its cache bitwise phase 8's rows of those days. 14d: a one-rank
+   NCCL mesh whose tickers axis is the WORLD group (so the loop's
+   collectives are NCCL's, not the one-rank identity): its collectives on
+   the card's tensors under the sync check with no staging, the sharded
+   loop over both batches bitwise 13a, and with the side outputs the
+   payload and stats the single-device ones bit for bit.
+   Timed: each rank's enqueue and completion, peak memory per rank and
+   summed, and the tiled kernel at a rank's ``[40000, 240]`` step in
+   turns with its plain version.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel and path (the tiled kernel on the host driver's batches, on the
-streaming snapshots, on the server's block builds and on the resident
-year's batches, the rowwise kernel on the window-20 path); the last is
-``{"ok": true, "device": {...}}``.
+streaming snapshots, on the server's block builds, on the resident
+year's batches and on a rank's step of the sharded year, the rowwise
+kernel on the window-20 path); the last is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -195,6 +229,9 @@ _CASES = importlib.util.spec_from_file_location(
     "torch_cases", REPO / "tests" / "torch_cases.py")
 cases = importlib.util.module_from_spec(_CASES)
 _CASES.loader.exec_module(cases)
+# phase 14's ranks are spawned processes that import this module by name
+sys.modules.setdefault("torch_cases", cases)
+sys.path.append(str(REPO / "tests"))
 WINDOW = 50
 TICKERS, DAYS = 5000, 8
 #: H100 SXM peaks (NVIDIA data sheet) used for the kernels' bound_ms
@@ -1222,6 +1259,9 @@ def host_driver(names, tables, card: str) -> dict:
 
         # 13b. the CLI's compute --profile-dir on some of these files
         profiled_driver(tmp, minute_dir, names, card)
+
+        # 14c. the CLI's compute --mesh-tickers 2 on some of these files
+        mesh_driver(tmp, minute_dir, table, names, card)
     return launches
 
 
@@ -2864,6 +2904,9 @@ def resident_year(tables, card: str) -> dict:
         f"the raw slice, each batch's stats bitwise factor_stats_block; "
         f"batch 0 decodes within RESULT_BOUNDS ({v['widened']} slices "
         f"widened, max rel err {v['max_rel_err']:.2e})")
+    # phase 14 holds its sharded runs against these batches
+    year_ctx = {"host": host[:SHARDED_BATCHES], "spec": spec, "kind": kind,
+                "ref": fetched[:SHARDED_BATCHES].clone(), "rspec": rspec}
     del payload, stats, fetched
 
     # the kernel at the year's batch shape, on batch 0's decoded bars
@@ -2895,7 +2938,7 @@ def resident_year(tables, card: str) -> dict:
     return {"launches": launches["tiled"], "max_abs_err": err,
             "ms": float(np.median(kernel_ms)),
             "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
-            "bound_by": by}
+            "bound_by": by}, year_ctx
 
 
 def device_busy(events):
@@ -3001,6 +3044,366 @@ def profiled_driver(tmp: Path, minute_dir: Path, names, card: str) -> None:
         + ", ".join(f"{k} {v / 1e3:.1f}"
                     for k, v in s["stage_annotations_us"].items())
         + f"; reconciliation ok {report['reconciliation']['ok']} ({card})")
+
+
+#: phase 14: the batches of phase 13a's year the sharded loops take, the
+#: ranks of 14a/14b (all on the one card), the 2-D mesh, and the day files
+#: of phase 8 that 14c's ``compute --mesh-tickers 2`` reads
+SHARDED_BATCHES, SHARDED_RANKS, MESH_2D, MESH_DRIVER_DAYS = 2, 4, (2, 2), 16
+
+
+def host_unpack(buf: np.ndarray, spec):
+    """The arrays of a packed host buffer (``wire.pack_arrays``' spec)."""
+    return tuple(np.frombuffer(buf, np.dtype(dt),
+                               count=int(np.prod(shape, dtype=np.int64)),
+                               offset=off).reshape(shape)
+                 for dt, shape, off in spec)
+
+
+def hold_sharded(label, names, got, ref, host, spec, kind, tables):
+    """The sharded-vs-single-device bar on ``[N, F, D, T]`` blocks
+    (bitwise, the JAX package's ulp pair at 16 eps): the factors that
+    miss it are named with their largest gap, and every block is then
+    held to the parity suite's tolerances (a miss is a reduction order,
+    never a wrong value). Returns the misses."""
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        DayContext)
+
+    misses = cases.sharded_misses(names, got, ref)
+    if not misses:
+        return misses
+    log(f"{label}: {len(misses)} factors miss the bitwise sharded bar; "
+        "largest gaps: " + ", ".join(f"{n} {g:.3e}"
+                                     for n, g in misses.items()))
+    for i in range(got.shape[0]):
+        dec = pipeline._decode(host[i].to("cuda"), spec, kind)
+        ctx = DayContext(*dec, rolling_impl="cuda")
+        kurt = {k: ref[i, names.index(k)] for k in ("shape_kurt",
+                                                     "shape_kurtVol")}
+        compare_blocks(f"{label} batch {i}", names,
+                       torch.from_numpy(got[i]), torch.from_numpy(ref[i]),
+                       tables, ctx.beta_moments()[:3], kurt=kurt,
+                       pdf_ctx=ctx)
+    return misses
+
+
+def sharded_year(ctx, names, card: str, tables) -> dict:
+    """Phase 14a/14b/14d: the sharded resident loops on ranks sharing the
+    card, held against phase 13a's single-device outputs; see the module
+    docstring. Returns the kernels line's entry for the tiled kernel at
+    a rank's shape."""
+    import tempfile
+
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        factorplane)
+
+    spec, kind, ref, rspec = ctx["spec"], ctx["kind"], ctx["ref"].numpy(), \
+        ctx["rspec"]
+    n = SHARDED_BATCHES
+    arrays = [host_unpack(h.numpy(), spec) for h in ctx["host"]]
+    # 14d's probe first: does NCCL take two ranks on one card? (14a uses it
+    # if it does)
+    t0 = time.perf_counter()
+    try:
+        probe = cases.run_on_ranks([("p", "nccl_probe", {})], 2,
+                                   device="cuda", backend="nccl",
+                                   timeout_s=90)
+        backend = "nccl"
+        log(f"phase 14d probe: NCCL took two ranks on one card "
+            f"(all-reduce {probe[0]['p']['sum']}); 14a and 14b run on NCCL")
+    except (RuntimeError, TimeoutError) as e:
+        backend = "gloo"
+        why = [ln.strip() for ln in str(e).splitlines() if ln.strip()][-1]
+        log(f"phase 14d probe: NCCL refused two ranks on one card in "
+            f"{time.perf_counter() - t0:.1f} s ({why[:160]}); 14a and 14b "
+            "run on gloo, staged through pinned host buffers")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        p1 = [wire.pack_sharded(a, SHARDED_RANKS) for a in arrays]
+        p2 = [wire.pack_sharded_2d(a, *MESH_2D) for a in arrays]
+        if len({sp for _, sp in p1}) != 1 or len({sp for _, sp in p2}) != 1:
+            fail("phase 14: the shards of the year's batches differ in spec")
+        np.save(tmp / "year1d.npy", np.stack([b for b, _ in p1]))
+        np.save(tmp / "year.npy",
+                np.stack([h.numpy() for h in ctx["host"]])[:, None])
+        np.save(tmp / "year2d.npy", np.stack([b for b, _ in p2]))
+        log(f"phase 14 input: batches 0-{n - 1} of phase 13a's year "
+            f"({n} x {YEAR_DAYS} days x {TICKERS} tickers), their wire "
+            f"arrays split into {SHARDED_RANKS} ticker shards and {MESH_2D} "
+            f"tiles from the packed buffers (no encode), written for the "
+            f"ranks in {time.perf_counter() - t0:.2f} s (host)")
+        t0 = time.perf_counter()
+        res = cases.run_on_ranks(
+            [("a", "year_1d", dict(path=str(tmp / "year1d.npy"),
+                                   spec=p1[0][1], kind=kind, names=names,
+                                   n_logical=TICKERS, rspec=rspec)),
+             ("b", "resident_2d", dict(stacks=str(tmp / "year2d.npy"),
+                                       spec=p2[0][1], kind=kind,
+                                       names=names, shape=MESH_2D, group=1,
+                                       t_pad=TICKERS, device="cuda"))],
+            SHARDED_RANKS, workdir=tmp, device="cuda", backend=backend,
+            timeout_s=600)
+        wall = time.perf_counter() - t0
+        nccl = cases.run_on_ranks(
+            [("d", "nccl_year", dict(path=str(tmp / "year.npy"), spec=spec,
+                                     kind=kind, names=names, rspec=rspec,
+                                     n_logical=TICKERS))],
+            1, workdir=tmp, device="cuda", backend="nccl", timeout_s=300)[0]
+    res = sorted(res, key=lambda r: r["a"]["coord"])
+    t_local = TICKERS // SHARDED_RANKS
+
+    # 14a: the 1-D loop
+    a = [r["a"] for r in res]
+    got = np.concatenate([x["ys"] for x in a], axis=-1)
+    if got.shape != ref.shape:
+        fail(f"phase 14a: assembled {got.shape}, not {ref.shape}")
+    misses_a = hold_sharded("phase 14a", names, got, ref, ctx["host"], spec,
+                            kind, tables)
+    for x in a:
+        if x["launches"] != {"tiled": n, "rowwise": 0}:
+            fail(f"phase 14a rank {x['coord']}: launched {x['launches']}, "
+                 f"not the tiled kernel once a step")
+        if not x["dead"] or "donated" not in x["reuse"]:
+            fail(f"phase 14a rank {x['coord']}: the donated buffers are "
+                 f"usable ({x['reuse']})")
+        if x["backends"]["tickers"] != backend:
+            fail(f"phase 14a: the tickers group runs {x['backends']}")
+        side = x["side"]
+        if side["launches"]["tiled"] != n:
+            fail(f"phase 14a side outputs launched {side['launches']}")
+    # each rank's payload: the single-device payload's arrays, its lanes
+    sizes = {x["side"]["payload"].shape for x in a}
+    eps = float(np.finfo(np.float32).eps)
+    stat_gap = 0.0  # the stats moments' largest gap, in eps of the value
+    for i in range(n):
+        one = rw.encode_block(torch.from_numpy(ref[i]).cuda(), rspec)
+        full = host_unpack(one.cpu().numpy(),
+                           rw.payload_spec(len(names), YEAR_DAYS, TICKERS,
+                                           rspec.spill_rows))
+        want_stats = factorplane.factor_stats_block(
+            torch.from_numpy(ref[i]).cuda()).cpu().numpy()
+        for j, x in enumerate(a):
+            sl = slice(j * t_local, (j + 1) * t_local)
+            mine = wire.pack_arrays((full[0][..., sl], *full[1:4],
+                                     full[4][:, sl]))[0]
+            if not np.array_equal(x["side"]["payload"][i], mine):
+                fail(f"phase 14a batch {i} rank {j}: the payload is not the "
+                     "single-device payload's arrays on its lanes")
+            st = x["side"]["stats"][i]
+            if not (np.array_equal(st[:, :5], want_stats[:, :5])
+                    and np.array_equal(st[:, 7:], want_stats[:, 7:],
+                                       equal_nan=True)):
+                fail(f"phase 14a batch {i} rank {j}: stats counts/min/max "
+                     "differ from the single-device sketch")
+            # the moments are f64 sums over 160,000 lanes, taken in
+            # another order and rounded once: held to the JAX package's
+            # pin, 32 eps of the value
+            with np.errstate(invalid="ignore"):
+                gap = np.abs(st[:, 5:7] - want_stats[:, 5:7])
+                by_value = gap / np.maximum(np.abs(want_stats[:, 5:7]),
+                                            1e-6)
+            fin = np.isfinite(want_stats[:, 5:7])
+            if (np.isfinite(st[:, 5:7]) != fin).any():
+                fail(f"phase 14a batch {i} rank {j}: stats moments' NaN "
+                     "status differs from the single-device sketch")
+            if (fin & ~(by_value <= 32 * eps)).any():
+                f = np.flatnonzero((fin & ~(by_value <= 32 * eps)).any(1))
+                fail(f"phase 14a batch {i} rank {j}: stats moments of "
+                     f"{[names[k] for k in f]} past 32 eps of their value "
+                     f"(largest {float(np.nanmax(by_value[f])) / eps:.1f} "
+                     "eps)")
+            stat_gap = max(stat_gap, float(np.nanmax(
+                np.where(fin, by_value, 0.0))) / eps)
+    enq = [x["enqueue_s"] for x in a]
+    done = [x["done_s"] for x in a]
+    waits = [x["staged_waits"] for x in a]
+    peak = sum(x["peak"] for x in a)
+    log(f"phase 14a compute_packed_resident_sharded on a (1, "
+        f"{SHARDED_RANKS}) mesh of {SHARDED_RANKS} ranks sharing the card "
+        f"(groups {a[0]['backends']}), all {len(names)} factors, {n} "
+        f"batches of [{YEAR_DAYS}, {t_local}] a rank: "
+        + ("bitwise phase 13a's single-device outputs on every factor"
+           if not misses_a else f"{len(misses_a)} factors off the bitwise "
+           "bar, all within the parity tolerances")
+        + f"; tiled launches {[x['launches']['tiled'] for x in a]} (once a "
+        f"step a rank); under set_sync_debug_mode('error') no host sync but "
+        f"the transport's staging waits {waits}; enqueue s "
+        f"{[round(v, 3) for v in enq]}, done s {[round(v, 3) for v in done]}"
+        f" (four ranks sharing one card: not multi-card scaling); peak "
+        f"allocated {[round(x['peak'] / 2**30, 3) for x in a]} GiB, "
+        f"{peak / 2**30:.3f} GiB summed; donated handles raise; payloads "
+        f"{sorted(sizes)} B each the single-device payload's arrays on the "
+        f"rank's lanes, stats counts/min/max bitwise and moments within "
+        f"32 eps of their value (largest {stat_gap:.2f} eps); the group's "
+        f"wall with rank start-up {wall:.1f} s ({card})")
+    mesh_a = a[0]["mesh"]
+    log(f"phase 14a mesh block: {mesh_a['n_shards']} ranks, skew "
+        f"{mesh_a['shard_skew_ratio']}, watermarks (s) "
+        f"{mesh_a['shard_time_s']}")
+
+    # 14b: the 2-D loop
+    b = [r["b"] for r in res]
+    rows = {}
+    for x in b:
+        rows.setdefault(x["coord"][0], {})[x["coord"][1]] = x["ys"]
+    got2 = np.concatenate(
+        [np.concatenate([rows[i][j] for j in sorted(rows[i])], axis=-1)
+         for i in sorted(rows)], axis=-2)
+    misses_b = hold_sharded("phase 14b", names, got2, ref, ctx["host"],
+                            spec, kind, tables)
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.stream import (
+        carry as scarry)
+    state = {k: torch.from_numpy(v).cuda()
+             for k, v in scarry.init_span_state(TICKERS).items()}
+    state["day"] = torch.full((TICKERS,), -1, dtype=torch.int32,
+                              device="cuda")
+    for i in range(n):
+        state = scarry.combine_span_state(state, scarry.span_prefix_state(
+            *pipeline._decode(ctx["host"][i].to("cuda"), spec, kind),
+            i * YEAR_DAYS))
+    t2 = TICKERS // MESH_2D[1]
+    for x in b:
+        j = x["coord"][1]
+        for k in ("last_close", "n_bars", "has"):
+            want = state[k][j * t2:(j + 1) * t2].cpu().numpy()
+            if not np.array_equal(np.asarray(x["carry"][k]).view(np.uint8),
+                                  want.view(np.uint8)):
+                fail(f"phase 14b rank {x['coord']}: carry {k} differs from "
+                     "the single-device span fold")
+        if x["handoffs"] != n:
+            fail(f"phase 14b rank {x['coord']}: {x['handoffs']} carry "
+                 f"handoffs counted, expected one a call ({n})")
+        if x["launches"] != {"tiled": n, "rowwise": 0}:
+            fail(f"phase 14b rank {x['coord']}: launched {x['launches']}")
+    log(f"phase 14b compute_packed_resident_2d on a {MESH_2D} mesh, one "
+        f"batch a call with the carry threaded: tiles of [{YEAR_DAYS // 2}, "
+        f"{t2}] "
+        + ("bitwise phase 13a's outputs" if not misses_b else
+           f"{len(misses_b)} factors off the bitwise bar within tolerance")
+        + f"; carry_handoff dispatches {[x['handoffs'] for x in b]} a rank; "
+        f"the year-end carry on every rank bitwise the single-device span "
+        f"fold of the same days; mesh block axes "
+        f"{b[0]['mesh']['axes'].get('days', {}).get('shard_time_s')} ({card})")
+
+    # 14d: one NCCL rank, its tickers axis the WORLD group
+    d = nccl["d"]
+    if d["backend"] != "nccl" or not d["gather_ok"] \
+            or d["staged_waits"] != 0:
+        fail(f"phase 14d: the NCCL rank: "
+             f"{dict((k, v) for k, v in d.items() if k in ('backend', 'gather_ok', 'staged_waits'))}")
+    if d["loop_collectives"]["all_gather"] < 2 * n \
+            or d["collectives"]["all_reduce"] < n:
+        fail(f"phase 14d: the sharded loop ran {d['loop_collectives']} "
+             f"collectives raw and {d['collectives']} in all; the doc_pdf "
+             "gather and the side outputs' reductions did not go through "
+             "the NCCL group")
+    if cases.sharded_misses(names, d["ys"], ref):
+        fail("phase 14d: the one-rank NCCL mesh differs from phase 13a")
+    for i in range(n):
+        one = torch.from_numpy(ref[i]).cuda()
+        if not np.array_equal(d["payload"][i],
+                              rw.encode_block(one, rspec).cpu().numpy()):
+            fail(f"phase 14d batch {i}: the payload is not the "
+                 "single-device payload")
+        if not np.array_equal(
+                d["stats"][i].view(np.int32),
+                factorplane.factor_stats_block(one).cpu().numpy().view(
+                    np.int32)):
+            fail(f"phase 14d batch {i}: the stats are not the "
+                 "single-device sketch bit for bit")
+    log(f"phase 14d: a one-rank NCCL mesh whose tickers axis is the WORLD "
+        f"group: all_gather (f32 and bool) and a MIN all_reduce on the "
+        f"card's tensors under set_sync_debug_mode('error') with no "
+        f"staging; the sharded loop's {d['loop_collectives']['all_gather']}"
+        f" all_gathers (all_gather_into_tensor, the doc_pdf rank) over the "
+        f"year's whole batches bitwise phase 13a, and with the side outputs"
+        f" ({d['collectives']} in all, the f64 stats sums and the wire's "
+        f"extremes all-reduced on NCCL) the payload byte for byte and the "
+        f"stats bit for bit the single-device ones")
+
+    # the kernel at a rank's shape, on rank 0's decoded tile of batch 0
+    bars, mask = pipeline._decode(torch.from_numpy(p1[0][0][0]).cuda(),
+                                  p1[0][1], kind)
+    low = bars[..., 2].reshape(-1, 240).contiguous()
+    high = bars[..., 1].reshape(-1, 240).contiguous()
+    pm = mask.reshape(-1, 240)
+    args = rolling.second_moment_inputs(low, high, pm, WINDOW)
+    vmask = rolling._windowed_sum(pm, WINDOW) > WINDOW - 0.5
+    err = hold_to_plain("phase 14a second_moments",
+                        rolling_cuda.second_moments(*args, WINDOW),
+                        rolling_cuda.second_moments_plain(*args, WINDOW),
+                        vmask, 1e-5, 1e-9, constant_row=False)
+    kernel_ms, plain_ms = [], []
+    for dest, fn, clock in (
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms)):
+        dest += clock(lambda: fn(*args, WINDOW))
+    rows_ = low.shape[0]
+    bound, by, mb, _ = moment_bound(rows_, 240)
+    total = sum(x["launches"]["tiled"] for x in a)
+    log(f"phase 14a second_moments [{rows_}, 240] (a rank's step) on rank "
+        f"0's decoded tile: max_abs_err={err:.3e} vs plain; tiled "
+        f"{spread(kernel_ms)} ({bound / np.median(kernel_ms):.0%} of the "
+        f"{bound:.4f} ms bound by {by}, {mb:.1f} MB); plain "
+        f"{spread(plain_ms)}; {total} launches over the {SHARDED_RANKS} "
+        f"ranks' run ({card})")
+    return {"launches": total, "max_abs_err": err,
+            "ms": float(np.median(kernel_ms)),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
+            "bound_by": by}
+
+
+def mesh_driver(tmp: Path, minute_dir: Path, table, names, card: str
+                ) -> None:
+    """Phase 14c: the CLI's ``compute --mesh-tickers 2`` in this process
+    over phase 8's first day files: two spawned ranks share the card, and
+    the cache is bitwise phase 8's rows of the same days."""
+    from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
+        ExposureTable)
+
+    files = sorted(minute_dir.glob("*.parquet"))[:MESH_DRIVER_DAYS]
+    days = tmp / "kline14"
+    days.mkdir()
+    for f in files:
+        (days / f.name).symlink_to(f)
+    cache = tmp / "mesh14.parquet"
+    rc, out, secs = run_cli(["compute", "--minute-dir", str(days),
+                             "--days-per-batch", str(DAYS_PER_BATCH),
+                             "--quiet", "--mesh-tickers", "2",
+                             "--cache", str(cache)])
+    if rc != 0 or out["days"] != MESH_DRIVER_DAYS or out["failed_days"]:
+        fail(f"phase 14c: compute --mesh-tickers 2 gave {rc}, {out}")
+    got = ExposureTable.load(str(cache))
+    dates = np.unique(got.columns["date"])
+    sel = np.isin(table.columns["date"], dates)
+    if len(dates) != MESH_DRIVER_DAYS or int(sel.sum()) != len(got):
+        fail(f"phase 14c: {len(got)} rows over {len(dates)} days against "
+             f"{int(sel.sum())} rows of phase 8's cache")
+    for k in ("code", "date"):
+        if not np.array_equal(np.asarray(got.columns[k]),
+                              np.asarray(table.columns[k])[sel]):
+            fail(f"phase 14c: the {k} column differs from phase 8's")
+    bad = [n for n in names
+           if not np.array_equal(got.columns[n].view(np.int32),
+                                 table.columns[n][sel].view(np.int32))]
+    if bad:
+        fail(f"phase 14c: {bad} differ from phase 8's cache")
+    log(f"phase 14c compute --mesh-tickers 2 over {MESH_DRIVER_DAYS} of phase "
+        f"8's day files (two spawned ranks sharing the card, gloo; rank 0 "
+        f"reads, grids, encodes and scatters the shards, both compute, rank "
+        f"0 gathers and writes): {len(got)} rows x {len(names)} factors "
+        f"bitwise phase 8's cache of the same days; {secs:.2f} s with the "
+        f"ranks' start-up ({card})")
 
 
 def kind_name(card: str) -> str:
@@ -3215,7 +3618,15 @@ def main() -> None:
     discovery_path(card)
 
     # 13a. the resident year (13b ran inside phase 8's directory)
-    year_line = resident_year(tables, card)
+    year_line, year_ctx = resident_year(tables, card)
+
+    # 14. the sharded resident year on ranks (14c ran inside phase 8's
+    # directory)
+    t0 = time.perf_counter()
+    sharded_line = sharded_year(year_ctx, names, card, tables)
+    log(f"phase 14a/b/d wall (ranks' start-up included): "
+        f"{time.perf_counter() - t0:.1f} s")
+    del year_ctx
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"
@@ -3241,7 +3652,8 @@ def main() -> None:
         "library_ms": None,
     } for name, entry in (("second_moments_stream_snapshot", stream_line),
                           ("second_moments_serve_block", serve_line),
-                          ("second_moments_resident_year", year_line))]}),
+                          ("second_moments_resident_year", year_line),
+                          ("second_moments_sharded_year", sharded_line))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

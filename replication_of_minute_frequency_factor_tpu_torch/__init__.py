@@ -22,7 +22,10 @@ the packed path's result wire and factor-stats side outputs; the resident
 year loop, :func:`compute_packed_resident` (N device-resident buffers, no
 host round trip, one fetch; the inputs donated on the card); the factor
 server and discovery; the profiler capture and trace attribution, the f64
-oracle as ``backend='numpy'``, and the bundle tools.
+oracle as ``backend='numpy'``, and the bundle tools; multi-GPU runs on
+``torch.distributed`` (:mod:`.parallel`: a ``(days, tickers)`` mesh of
+ranks, the collectives, the sharded and 2-D resident loops, and the
+driver sharded over ranks with ``Config(mesh_shape=(1, n))``).
 Entry points run on the card unless the caller passes ``device='cpu'``.
 """
 

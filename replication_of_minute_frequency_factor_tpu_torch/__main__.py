@@ -45,10 +45,18 @@ it, both raise):
 ``compute --profile-dir DIR`` captures a trace of the run;
 ``compute --backend numpy`` runs the f64 oracle on the host
 (``--backend polars`` exits 2: its harness imports the JAX package).
+``compute --mesh-tickers N`` shards the tickers axis over N ranks: the
+command spawns them itself (each on ``cuda:{rank % device_count}``, NCCL
+when every rank has a card of its own, else gloo), or joins the group it
+was started in under ``torchrun`` (``RANK``/``WORLD_SIZE`` set; only
+rank 0 prints):
+
+    python -m replication_of_minute_frequency_factor_tpu_torch compute \
+        --minute-dir data/kline --cache data/factors.parquet \
+        --mesh-tickers 2
 
 Still waiting for the slices that port what they drive: the ``analyze``
-subcommand, ``serve --fleet`` (ROADMAP Queue 1 item 7; N > 0 exits 2),
-and ``compute --mesh-tickers`` (multi-GPU runs, item 6).
+subcommand and ``serve --fleet`` (ROADMAP Queue 1 item 7; N > 0 exits 2).
 """
 
 from __future__ import annotations
@@ -77,6 +85,9 @@ def _add_compute(sub: "argparse._SubParsersAction") -> None:
     p.add_argument("--factors", default="all",
                    help="comma-separated factor names, or 'all' (default)")
     p.add_argument("--days-per-batch", type=int, default=None)
+    p.add_argument("--mesh-tickers", type=int, default=None, metavar="N",
+                   help="shard the tickers axis over N ranks (spawned "
+                        "here, or the torchrun group this runs in)")
     p.add_argument("--no-wire", action="store_true",
                    help="ship raw f32 instead of the compact wire format")
     p.add_argument("--fixed-quirks", action="store_true",
@@ -338,6 +349,20 @@ def cmd_compute(args: argparse.Namespace) -> int:
     if args.profile_dir is not None:
         cfg.profile_dir = args.profile_dir
     telemetry_dir = getattr(args, "telemetry_dir", None)
+    if args.mesh_tickers is not None:
+        import os
+
+        if args.mesh_tickers < 1:
+            print("--mesh-tickers takes N >= 1", file=sys.stderr)
+            return 2
+        cfg.mesh_shape = (1, args.mesh_tickers)
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            from .parallel import multihost
+            multihost.initialize(device=args.device)
+        elif telemetry_dir and args.mesh_tickers > 1:
+            print("compute --mesh-tickers spawns its ranks: --telemetry-dir "
+                  "needs them started under torchrun", file=sys.stderr)
+            return 2
     tel = None
     if telemetry_dir:
         # install as the process default so the data/wire layer
@@ -349,6 +374,8 @@ def cmd_compute(args: argparse.Namespace) -> int:
                               retry_failed=args.retry_failed,
                               telemetry=tel,
                               device=args.device)  # saves cache
+    if table is None:  # a rank other than 0 of a torchrun group
+        return 0
     n_days = len(set(map(str, table.columns["date"])))
     out = {
         "rows": len(table), "days": n_days,

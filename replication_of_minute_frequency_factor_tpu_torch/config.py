@@ -6,18 +6,17 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
 class Config:
     """The JAX package's ``Config``, minus the fields the port does not
-    take, which a caller cannot set (``Config(mesh_shape=...)`` is a
-    TypeError): ``mesh_shape`` waits for multi-GPU runs (ROADMAP Queue 1
-    item 6); the XLA knobs ``compile_telemetry`` and
-    ``compilation_cache_dir`` have no torch counterpart (eager torch
-    compiles nothing). ``backend`` defaults to ``'torch'``, the device
-    path, where the JAX package's default is ``'jax'``."""
+    take, which a caller cannot set (passing one is a TypeError): the XLA
+    knobs ``compile_telemetry`` and ``compilation_cache_dir`` have no
+    torch counterpart (eager torch compiles nothing). ``backend``
+    defaults to ``'torch'``, the device path, where the JAX package's
+    default is ``'jax'``."""
 
     # --- data roots ---
     #: directory of per-trading-day minute-bar parquet files
@@ -36,6 +35,10 @@ class Config:
     backend: str = "torch"
     #: how many trading days to batch into one device step
     days_per_batch: int = 8
+    #: the ``(days, tickers)`` mesh of ranks the host driver shards over
+    #: (``compute_exposures``: ``(1, n)`` only, one rank per ticker
+    #: shard); None = one device
+    mesh_shape: Optional[Tuple[int, int]] = None
     #: replicate reference quirks Q1-Q4 bit-for-bit (SURVEY.md §2.5).
     #: False switches to the mathematically intended definitions.
     replicate_quirks: bool = True

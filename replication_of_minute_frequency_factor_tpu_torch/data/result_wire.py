@@ -181,12 +181,21 @@ def _pack_device(arrays) -> torch.Tensor:
     return torch.cat(chunks)
 
 
-def encode_block(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
+def encode_block(x: torch.Tensor, spec: ResultWireSpec,
+                 xs_axis_name=None) -> torch.Tensor:
     """Quantize one ``[F, D, T]`` f32 exposure block on its device into
     the packed ``[L] uint8`` payload (module docstring): per slice,
     masked min/max -> affine int16 with the NaN sentinel -> round-trip
     check against the factor's bound -> widen to the spill plane on a
-    miss."""
+    miss.
+
+    ``xs_axis_name`` (on one rank of a mesh, inside ``with mesh:``):
+    ``x`` holds this rank's tickers, and each slice's min/max and widen
+    decision are all-reduced over the axis (exactly), so the
+    quantization is the GLOBAL one: this rank's payload is the
+    single-device payload's arrays restricted to its lanes (``q`` and
+    ``spill`` sliced along tickers, ``scale``/``offset``/``sidx``
+    whole)."""
     f, d, t = x.shape
     if len(spec.bounds) != f:
         raise ValueError(f"spec pins {len(spec.bounds)} factors; block "
@@ -197,6 +206,11 @@ def encode_block(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
     big = float(np.finfo(np.float32).max)
     lo = torch.where(finite, x, big).amin(dim=-1)
     hi = torch.where(finite, x, -big).amax(dim=-1)
+    if xs_axis_name is not None:
+        from ..parallel.collectives import xs_reduce_local
+        ext = xs_reduce_local(torch.stack(
+            [lo, -hi, -has_finite.to(torch.float32)]), "min", xs_axis_name)
+        lo, hi, has_finite = ext[0], -ext[1], ext[2] < 0
     lo = torch.where(has_finite, lo, 0.0)
     hi = torch.where(has_finite, hi, 0.0)
     rng = hi - lo
@@ -223,10 +237,11 @@ def encode_block(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
     bound = atol_rel * rng[..., None]
     bound = bound + rtol * x.abs()
     lane_bad = finite & ~(err <= bound)
-    widen = (lane_bad.any(dim=-1)
-             | torch.isinf(x).any(dim=-1)
-             | ~torch.isfinite(scale)
-             | force)                                         # [F, D]
+    miss = lane_bad.any(dim=-1) | torch.isinf(x).any(dim=-1)
+    if xs_axis_name is not None:
+        miss = xs_reduce_local(miss.to(torch.int32), "max",
+                               xs_axis_name) > 0
+    widen = miss | ~torch.isfinite(scale) | force              # [F, D]
     wflat = widen.reshape(-1)
     # int32 like the JAX package's cumsum (torch's would be int64)
     row = torch.cumsum(wflat.to(torch.int32), 0, dtype=torch.int32) - 1
@@ -243,13 +258,14 @@ def encode_block(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
     return _pack_device((q, scale, offset, sidx, spill[:spec.spill_rows]))
 
 
-def encode_stacked(x: torch.Tensor, spec: ResultWireSpec) -> torch.Tensor:
+def encode_stacked(x: torch.Tensor, spec: ResultWireSpec,
+                   xs_axis_name=None) -> torch.Tensor:
     """``[N, F, D, T]`` -> ``[N, L]`` uint8: one :func:`encode_block` for
     each leading slice (the JAX package's ``vmap`` of it)."""
     if x.dim() != 4:
         raise ValueError(f"encode_stacked takes [N, F, D, T], not "
                          f"{tuple(x.shape)}")
-    return torch.stack([encode_block(b, spec) for b in x])
+    return torch.stack([encode_block(b, spec, xs_axis_name) for b in x])
 
 
 # --------------------------------------------------------------------------

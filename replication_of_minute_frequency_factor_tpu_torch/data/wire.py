@@ -333,3 +333,117 @@ def unpack(buf, spec):
         raw = buf[off:off + n * dt.itemsize]
         out.append(raw.view(_TORCH_DTYPES[dt]).reshape(shape))
     return tuple(out)
+
+
+def shard_arrays(arrays, n_shards: int):
+    """Split a batch's arrays into ``n_shards`` contiguous ticker blocks.
+
+    Works on wire arrays (``WireBatch.arrays``) and on the raw
+    fallback's ``(bars, mask_u8)`` alike: every array of rank >= 2
+    carries tickers on axis 1 and splits there; scalars (``vol_scale``)
+    go whole into every shard. The split happens AFTER the full-batch
+    encode, so shard s's bytes are a slice of the single-device
+    encoding, which keeps the sharded decode bitwise. The tickers extent
+    must divide by ``n_shards`` (pad with masked lanes first)."""
+    arrays = [np.asarray(a) for a in arrays]
+    for a in arrays:
+        if a.ndim >= 2 and a.shape[1] % n_shards:
+            raise ValueError(
+                f"tickers extent {a.shape[1]} does not divide into "
+                f"{n_shards} shards — pad the batch first")
+    out = []
+    for s in range(n_shards):
+        parts = []
+        for a in arrays:
+            if a.ndim >= 2:
+                t = a.shape[1] // n_shards
+                parts.append(a[:, s * t:(s + 1) * t])
+            else:
+                parts.append(a)
+        out.append(tuple(parts))
+    return out
+
+
+def pack_sharded(arrays, n_shards: int) -> tuple:
+    """A batch packed as ``n_shards`` per-shard single buffers, stacked
+    ``[S, L]``, plus the per-shard spec (the same for every shard: equal
+    extents, shared dtypes). Row s is an independent
+    :func:`pack_arrays` buffer of ticker shard s, so the rank that owns
+    shard s unpacks it with no cross-shard addressing."""
+    packs = [pack_arrays(parts) for parts in shard_arrays(arrays,
+                                                          n_shards)]
+    specs = {spec for _, spec in packs}
+    if len(specs) != 1:  # cannot happen: equal extents + shared dtypes
+        raise AssertionError(f"per-shard specs diverged: {specs}")
+    return np.stack([buf for buf, _ in packs]), packs[0][1]
+
+
+def shard_arrays_2d(arrays, d_shards: int, t_shards: int):
+    """Split a batch's arrays into a ``d_shards x t_shards`` grid of
+    contiguous (day-span, ticker-block) tiles: :func:`shard_arrays`
+    extended to the days axis (axis 0 of every array of rank >= 2).
+    Both extents must divide (pad tickers with masked lanes and days
+    with fully masked filler days first). Returns ``grid[i][j]``
+    tuples."""
+    arrays = [np.asarray(a) for a in arrays]
+    for a in arrays:
+        if a.ndim >= 2 and (a.shape[0] % d_shards
+                            or a.shape[1] % t_shards):
+            raise ValueError(
+                f"batch extents {a.shape[:2]} do not divide into a "
+                f"({d_shards}, {t_shards}) shard grid — pad the batch "
+                "first")
+    grid = []
+    for i in range(d_shards):
+        row = []
+        for j in range(t_shards):
+            parts = []
+            for a in arrays:
+                if a.ndim >= 2:
+                    dd = a.shape[0] // d_shards
+                    tt = a.shape[1] // t_shards
+                    parts.append(a[i * dd:(i + 1) * dd,
+                                   j * tt:(j + 1) * tt])
+                else:
+                    parts.append(a)
+            row.append(tuple(parts))
+        grid.append(row)
+    return grid
+
+
+def pack_sharded_2d(arrays, d_shards: int, t_shards: int) -> tuple:
+    """A batch packed as a ``[Sd, St, L]`` stack of per-tile single
+    buffers plus the (shared) per-tile spec: the 2-D twin of
+    :func:`pack_sharded`."""
+    grid = [[pack_arrays(cell) for cell in row]
+            for row in shard_arrays_2d(arrays, d_shards, t_shards)]
+    specs = {spec for row in grid for _, spec in row}
+    if len(specs) != 1:  # cannot happen: equal extents + shared dtypes
+        raise AssertionError(f"per-tile specs diverged: {specs}")
+    return (np.stack([np.stack([buf for buf, _ in row])
+                      for row in grid]),
+            grid[0][0][1])
+
+
+def mesh_specs() -> tuple:
+    """Per wire array, the mesh axis a rank holds a slice of (the JAX
+    package's ``mesh_shardings``): every per-ticker array splits along
+    tickers (axis 1), the ``vol_scale`` scalar is whole everywhere."""
+    t = "tickers"
+    return ((None, t), (None, t, None), (None, t, None, None),
+            (None, t, None), (None, t, None), ())
+
+
+def put(arrays, mesh=None, device=None) -> tuple:
+    """A wire batch's arrays on a device: each whole on ``device``
+    (default: the card), or, with ``mesh``, this rank's tickers slice of
+    each (:func:`mesh_specs`) on the rank's device. The tickers extent
+    must divide by the mesh's tickers extent."""
+    from ..parallel.mesh import _to_rank, local_slice
+
+    if mesh is None:
+        dev = torch.device("cuda" if device is None else device)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+    return tuple(_to_rank(local_slice(np.asarray(a), spec, mesh), mesh)
+                 for a, spec in zip(arrays, mesh_specs()))

@@ -3,8 +3,7 @@
 The reference recomputes returns/shares/rolling stats inside every kernel
 (one polars pass per factor). Here every intermediate is computed at most
 once per day tensor and shared by all factors that need it. The port of
-the JAX package's ``models/context.py``; sharded-axis collectives
-(``xs_axis_name``) wait for multi-GPU runs and raise here.
+the JAX package's ``models/context.py``.
 
 Field layout follows :mod:`..data.minute` (open, high, low, close, volume).
 """
@@ -41,9 +40,6 @@ class DayContext:
     def __init__(self, bars, mask, replicate_quirks: bool = True,
                  rolling_impl: str = None, xs_axis_name: str = None,
                  inject: dict = None, session=None):
-        if xs_axis_name is not None:
-            raise NotImplementedError(
-                "DayContext: xs_axis_name is not ported yet")
         self.bars = bars
         self.mask = mask
         #: the market session spec: slot count, grid times and the
@@ -57,6 +53,11 @@ class DayContext:
                 f"{self.session.name!r} has {self.session.n_slots}")
         self.replicate_quirks = replicate_quirks
         self.rolling_impl = rolling_impl  # None -> Config.rolling_impl
+        #: the mesh axis the tickers dim is sharded over when this context
+        #: runs on one rank of a mesh (the sharded resident loops), resolved
+        #: through the active mesh (``with mesh:``); None = the tickers axis
+        #: is whole. Only the cross-sectional intermediates consult it.
+        self.xs_axis_name = xs_axis_name
         #: ``inject`` seeds the memo with intermediates computed elsewhere:
         #: the streaming finalize's carry leaves (stream/carry.py). An
         #: injected value must be bitwise what the batch formulation
@@ -161,12 +162,25 @@ class DayContext:
         """Average-tie rank of ``eod_ret`` across the ENTIRE day frame
         (all tickers x slots, one rank per day), matching the reference's
         whole-frame ``.rank()`` in the ``doc_pdf*`` kernels (:1016) — the
-        rank there is *not* per stock."""
+        rank there is *not* per stock.
+
+        With ``xs_axis_name`` set this is the one intermediate that
+        communicates: it goes through
+        :func:`..parallel.collectives.xs_global_rank_local` (all-gather
+        the cross-section over the axis's group, rank the whole frame,
+        this rank's lanes back), bitwise the single-device rank."""
         def f():
             v, m = self.eod_ret, self.mask
             flat = v.shape[:-2] + (v.shape[-2] * v.shape[-1],)
-            return rank_average(v.reshape(flat),
-                                m.reshape(flat)).reshape(v.shape)
+            if self.xs_axis_name is not None:
+                # imported here: collectives imports the registry, which
+                # imports this module
+                from ..parallel.collectives import xs_global_rank_local
+                r = xs_global_rank_local(v.reshape(flat), m.reshape(flat),
+                                         self.xs_axis_name)
+            else:
+                r = rank_average(v.reshape(flat), m.reshape(flat))
+            return r.reshape(v.shape)
         return self._get("eod_grank", f)
 
     @property

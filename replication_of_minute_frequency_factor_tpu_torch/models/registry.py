@@ -126,7 +126,7 @@ def compute_factors(bars, mask, names: Optional[Sequence[str]] = None,
                     replicate_quirks: bool = True,
                     rolling_impl: Optional[str] = None,
                     inject: Optional[dict] = None,
-                    session=None):
+                    session=None, xs_axis_name: Optional[str] = None):
     """Compute the named factors (default: all 58) over a day tensor.
 
     ``bars [..., T, S, 5]`` f32 and ``mask [..., T, S]`` bool, on one
@@ -136,11 +136,14 @@ def compute_factors(bars, mask, names: Optional[Sequence[str]] = None,
     ``inject`` seeds the DayContext memo with carry-native intermediates
     (the streaming finalize; see DayContext). ``session`` (a
     ``markets.SessionSpec`` or registry name; None is ``cn_ashare_240``)
-    sets the day shape and the sentinel boundaries.
+    sets the day shape and the sentinel boundaries. ``xs_axis_name``
+    names the mesh axis the tickers dim is sharded over when this runs on
+    one rank of a mesh (inside ``with mesh:``): per-(ticker, day) kernels
+    are unaffected, only the ``doc_pdf*`` rank gathers (DayContext).
     """
     if names is None:
         names = tuple(FACTORS)
     ctx = DayContext(bars, mask, replicate_quirks=replicate_quirks,
                      rolling_impl=rolling_impl, inject=inject,
-                     session=session)
+                     session=session, xs_axis_name=xs_axis_name)
     return {n: resolve(n)(ctx) for n in names}

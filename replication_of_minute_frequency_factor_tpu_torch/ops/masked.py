@@ -46,6 +46,13 @@ def masked_mean(x, mask):
 
 def _central_moment(x, mask, mu, k):
     d = torch.where(mask, x - mu[..., None], 0.0)
+    if k == 4:
+        # (d^2)^2, the repeated squaring jnp's integer power lowers to;
+        # torch's CPU pow(d, 4) runs the vector pow on whole 32-lane
+        # chunks and the scalar pow on the rest, so its bits would follow
+        # the tensor's length (a rank's ticker block vs the whole batch)
+        d2 = d * d
+        return (d2 * d2).sum(dim=-1)
     return (d**k).sum(dim=-1)
 
 
@@ -68,7 +75,10 @@ def masked_skew(x, mask):
     nn = n.clamp(min=1)
     m2 = _central_moment(x, mask, mu, 2) / nn
     m3 = _central_moment(x, mask, mu, 3) / nn
-    g1 = m3 / torch.pow(m2, 1.5)  # m2 == 0 -> NaN/inf, as polars
+    # m2^1.5 as m2 * sqrt(m2): both correctly rounded on every path, where
+    # torch's CPU pow(m2, 1.5) differs between its vector and scalar
+    # paths, so its bits would follow the tensor's length
+    g1 = m3 / (m2 * torch.sqrt(m2))  # m2 == 0 -> NaN/inf, as polars
     return torch.where(n > 0, g1, _NAN)
 
 

@@ -14,10 +14,12 @@ segment sum. The port of the JAX package's ``ops/segments.py``.
 Ordering note (SURVEY.md §2.5 Q7): the reference's ``cum_sum`` runs in
 polars' non-deterministic group-output order; the order is fixed to
 ascending value (= ascending rank), the intended semantics, as the JAX
-package and its numpy oracle do. The cumulative sum is f32, taken in
-whatever order the device's scan takes it, so a cumulative share within
-rounding of a ``doc_pdf*`` threshold may cross one group earlier or later
-than on another device (tests/test_parity.py's ``PDF_EDGE_EPS``).
+package and its numpy oracle do. The cumulative sum is accumulated in f64
+and rounded to f32 a lane (the CPU's f32 cumsum, bit for bit, and the
+same bits on the card at any row count); the JAX package's f32 scan
+associates otherwise, so a cumulative share within rounding of a
+``doc_pdf*`` threshold may cross one group earlier or later than there
+(tests/test_parity.py's ``PDF_EDGE_EPS``).
 """
 
 from __future__ import annotations
@@ -59,7 +61,11 @@ def _sorted_segments(values, weights, mask) -> Segments:
          | (smask[..., 1:] != smask[..., :-1])], dim=-1)
     is_end = torch.cat([new_group[..., 1:], first], dim=-1) & smask
 
-    cumw = torch.cumsum(sw, dim=-1)
+    # accumulated in f64 and rounded once a lane: the CPU's f32 cumsum
+    # does exactly this, and torch's CUDA f32 scan associates by the
+    # tensor's row count, so a rank's ticker block and the whole batch
+    # would get other bits; this way every device and shape agrees
+    cumw = torch.cumsum(sw, dim=-1, dtype=torch.float64).to(torch.float32)
     idx = torch.arange(L, device=values.device)
     start = cummax_last(torch.where(new_group, idx, -1))
     prev_cum = torch.where(

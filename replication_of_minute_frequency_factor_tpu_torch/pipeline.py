@@ -22,6 +22,11 @@ and the factor-stats sketch (:mod:`.telemetry.factorplane`).
 N device-resident packed buffers through the same body, one after
 another with no host round trip, into one preallocated result fetched
 once; on the card it donates its input buffers.
+:func:`compute_packed_resident_sharded` and :func:`compute_packed_resident_2d`
+run the same loop on each rank of a ``(1, n)`` or ``(d, t)`` mesh
+(:mod:`.parallel`) over its shard of the year, and ``Config.mesh_shape =
+(1, n)`` shards the host driver's tickers over n ranks (the same
+:func:`_run_device_pipeline`, its launch scattered over the ranks).
 
 :func:`compute_exposures_streamed` folds one day through the streaming
 engine (:mod:`.stream`).
@@ -93,9 +98,12 @@ def compute_batch(bars, mask, names: Optional[Sequence[str]] = None,
                     replicate_quirks)
 
 
-def _stacked(bars, mask, names, session, rolling_impl, replicate_quirks):
+def _stacked(bars, mask, names, session, rolling_impl, replicate_quirks,
+             xs_axis_name=None):
     """The named factors over device tensors, stacked to ``[F, ...]``;
-    None arguments take the registry's and the config's defaults."""
+    None arguments take the registry's and the config's defaults.
+    ``xs_axis_name``: the tickers are one rank's of a mesh (inside
+    ``with mesh:``)."""
     cfg = get_config()
     if rolling_impl is None:
         rolling_impl = cfg.rolling_impl
@@ -105,7 +113,8 @@ def _stacked(bars, mask, names, session, rolling_impl, replicate_quirks):
     out = compute_factors(bars, mask, names=names,
                           replicate_quirks=replicate_quirks,
                           rolling_impl=rolling_impl,
-                          session=get_session(session))
+                          session=get_session(session),
+                          xs_axis_name=xs_axis_name)
     return torch.stack([out[n] for n in names])
 
 
@@ -155,38 +164,62 @@ def _check_buffer(buf: torch.Tensor, what: str) -> None:
                          f"{tuple(buf.shape)}, expected 1-D uint8")
 
 
-def _packed_step(buf, spec, kind, names, replicate_quirks, rolling_impl,
-                 result_spec, factor_stats, session):
-    """The packed path's body on a device buffer: unpack, decode when
-    ``kind='wire'`` (``'raw'`` ships ``(bars f32, mask uint8)``), the
-    named factors stacked to ``[F, D, T]``, and the side outputs. One
-    function for the per-batch call and each step of the resident loop,
-    so a resident step is bitwise the per-batch call by construction."""
+def _decode(buf, spec, kind):
+    """Unpack a device buffer and decode it when ``kind='wire'``
+    (``'raw'`` ships ``(bars f32, mask uint8)``): ``(bars, mask)``."""
     arrs = wire.unpack(buf, spec)
     if kind == "wire":
-        bars, mask = wire.decode(*arrs)
-    else:
-        bars, mask = arrs  # the mask ships as uint8
-        mask = mask.to(torch.bool)
+        return wire.decode(*arrs)
+    bars, mask = arrs  # the mask ships as uint8
+    return bars, mask.to(torch.bool)
+
+
+def _packed_step(buf, spec, kind, names, replicate_quirks, rolling_impl,
+                 result_spec, factor_stats, session, xs_axis_name=None):
+    """The packed path's body on a device buffer: unpack, decode, the
+    named factors stacked to ``[F, D, T]``, and the side outputs. One
+    function for the per-batch call and each step of the resident loops,
+    so a resident step is bitwise the per-batch call by construction.
+    ``xs_axis_name``: the buffer holds one rank's tickers of a mesh."""
+    bars, mask = _decode(buf, spec, kind)
     stacked = _stacked(bars, mask, names, session, rolling_impl,
-                       replicate_quirks)
-    return _side_outputs(stacked, result_spec, factor_stats)
+                       replicate_quirks, xs_axis_name)
+    return _side_outputs(stacked, result_spec, factor_stats, xs_axis_name)
 
 
-def _side_outputs(stacked, result_spec, factor_stats):
+def _side_outputs(stacked, result_spec, factor_stats, xs_axis_name=None):
     """The stacked block, or its result-wire payload, with the stats
     sketch of the raw block when asked (see
-    :func:`compute_packed_prepared`)."""
+    :func:`compute_packed_prepared`). ``factor_stats`` may be True, the
+    logical ticker count, or a ``(days, tickers)`` pair of logical
+    extents. With ``xs_axis_name`` the block holds one rank's tickers:
+    the sketch and the payload's quantization are the global ones, and
+    the logical extent is read against this rank's global lanes."""
     stats = None
     if factor_stats:
-        stats = _factor_stats_block(
-            stacked if factor_stats is True
-            else stacked[..., :int(factor_stats)])
+        block = stacked
+        if factor_stats is not True:
+            fd, ft = ((None, factor_stats) if np.ndim(factor_stats) == 0
+                      else factor_stats)
+            t = stacked.shape[-1]
+            lo = (_axis_index(xs_axis_name) * t
+                  if xs_axis_name is not None else 0)
+            k = min(t, max(0, int(ft) - lo))
+            block = stacked[..., :k]
+            if fd is not None:
+                block = block[..., :int(fd), :]
+        stats = _factor_stats_block(block, xs_axis_name)
     if result_spec is not None:
-        stacked = _result_wire.encode_block(stacked, result_spec)
+        stacked = _result_wire.encode_block(stacked, result_spec,
+                                            xs_axis_name)
     if factor_stats:
         return stacked, stats
     return stacked
+
+
+def _axis_index(axis_name) -> int:
+    from .parallel.mesh import current_mesh
+    return current_mesh().axis_index(axis_name)
 
 
 def compute_packed(arrays, kind: str, names: Optional[Sequence[str]] = None,
@@ -305,11 +338,27 @@ def compute_packed_resident(dbufs, spec, kind: str,
     """
     _check_kind(kind)
     dev = resolve_device(device)
+
+    def step(buf, i):
+        return _packed_step(buf, spec, kind, names, replicate_quirks,
+                            rolling_impl, result_spec, factor_stats,
+                            session)
+
+    return _resident_loop(dbufs, dev, "compute_packed_resident", step,
+                          bool(factor_stats))
+
+
+def _resident_loop(dbufs, dev, caller: str, step, with_stats: bool):
+    """The resident loops' shared frame: check the buffers, run
+    ``step(buf, i)`` over them in order into preallocated outputs
+    (``[N, *y]``, plus ``[N, *stats]`` when ``with_stats``), and donate
+    each buffer once its step is enqueued (on the card, under
+    ``Config.donate_buffers``)."""
     cfg = get_config()
     dbufs = list(dbufs)
     if not dbufs:
-        raise ValueError("compute_packed_resident needs at least one buffer")
-    _guard_donated_args(dbufs, "compute_packed_resident", cfg)
+        raise ValueError(f"{caller} needs at least one buffer")
+    _guard_donated_args(dbufs, caller, cfg)
     for i, b in enumerate(dbufs):
         if not isinstance(b, torch.Tensor):
             raise TypeError(f"dbufs[{i}] is a {type(b).__name__}, expected "
@@ -332,10 +381,8 @@ def compute_packed_resident(dbufs, spec, kind: str,
     n = len(dbufs)
     out = stats = None
     for i, buf in enumerate(dbufs):
-        step = _packed_step(buf, spec, kind, names, replicate_quirks,
-                            rolling_impl, result_spec, factor_stats,
-                            session)
-        y, st = step if factor_stats else (step, None)
+        res = step(buf, i)
+        y, st = res if with_stats else (res, None)
         if out is None:
             out = torch.empty((n, *y.shape), dtype=y.dtype, device=y.device)
             if st is not None:
@@ -346,7 +393,157 @@ def compute_packed_resident(dbufs, spec, kind: str,
             stats[i] = st
         if donating:
             _invalidate_donated((buf,))
-    return (out, stats) if factor_stats else out
+    return (out, stats) if with_stats else out
+
+
+def compute_packed_resident_sharded(dbufs, spec, kind: str, mesh,
+                                    names: Optional[Sequence[str]] = None,
+                                    replicate_quirks: Optional[bool] = None,
+                                    rolling_impl: Optional[str] = None,
+                                    result_spec=None, factor_stats=False,
+                                    session=None):
+    """The resident year over a ``(1, n)`` mesh, run on each of its
+    ranks: the JAX package's ``compute_packed_resident_sharded``.
+
+    ``dbufs`` is this rank's N buffers of the year's ticker shard
+    (``parallel.mesh.put_packed_year`` of the ``[N, S, L]`` stack that
+    ``data.wire.pack_sharded`` makes), on ``mesh.device``. Each step is
+    :func:`compute_packed_resident`'s body on this rank's tickers, with
+    the ``doc_pdf*`` rank gathered over the tickers axis (the one
+    collective of the 58 kernels). Returns this rank's ``[N, F, D,
+    T/n]`` on its device. The side outputs are the GLOBAL ones: with
+    ``result_spec`` the per-(factor, day) min/max and widen decisions
+    are all-reduced before this rank encodes its lanes (its ``[N, L]``
+    payload is the single-device payload's arrays restricted to its
+    tickers), and ``factor_stats`` (True or the logical ticker count, so
+    pad lanes never read as missing) is the ``[N, F, 9]`` sketch of the
+    whole block on every rank (counts/min/max exact, f64 sums in the
+    transport's order, rounded once). The donation contract is
+    :func:`compute_packed_resident`'s."""
+    from .parallel.mesh import DAYS_AXIS, TICKERS_AXIS
+
+    _check_kind(kind)
+    if mesh.shape[DAYS_AXIS] != 1:
+        raise ValueError(
+            f"compute_packed_resident_sharded takes a tickers-only mesh, "
+            f"not {tuple(mesh.shape.values())}: the 2-D loop is "
+            "compute_packed_resident_2d")
+
+    def step(buf, i):
+        return _packed_step(buf, spec, kind, names, replicate_quirks,
+                            rolling_impl, result_spec, factor_stats,
+                            session, xs_axis_name=TICKERS_AXIS)
+
+    t0 = time.perf_counter()
+    with mesh:
+        out = _resident_loop(dbufs, mesh.device,
+                             "compute_packed_resident_sharded", step,
+                             bool(factor_stats))
+    # this rank's completion watermark, waited for off the caller's
+    # thread; gathered over the ranks at meshplane.drain()
+    get_telemetry().meshplane.watch_async_mesh(
+        out[0] if factor_stats else out, mesh, boundary="resident.group",
+        t0=t0)
+    return out
+
+
+def compute_packed_resident_2d(dbufs, spec, kind: str, mesh,
+                               names: Optional[Sequence[str]] = None,
+                               replicate_quirks: Optional[bool] = None,
+                               rolling_impl: Optional[str] = None,
+                               result_spec=None, factor_stats=False,
+                               carry_in=None, n_tickers=None, session=None):
+    """The resident year over a 2-D ``(days=d, tickers=t)`` mesh, with the
+    cross-day carry handoff: the JAX package's
+    ``compute_packed_resident_2d``, run on each rank.
+
+    ``dbufs`` is this rank's N tile buffers (``parallel.mesh.
+    put_packed_year_2d`` of the ``[N, Sd, St, L]`` stack of
+    ``data.wire.pack_sharded_2d``): each step covers day-span ``i`` x
+    ticker block ``j`` of one batch. Per step: the packed body on the
+    tile (the ``doc_pdf*`` rank gathered over tickers; each day-shard
+    ranks its own days' frames), and the tile's intraday prefix state
+    (``stream.carry.span_prefix_state``, global day index ``n * d *
+    D_loc + i * D_loc`` as the ordering key) folded into the carry. After
+    the loop the carry is handed off over the days axis
+    (``parallel.collectives.xs_carry_handoff_local``), so every
+    day-shard holds the global state.
+
+    ``carry_in`` ({``last_close``, ``n_bars``, ``has``} ``[T/t]``, this
+    rank's tickers; ``stream.carry.init_span_state`` +
+    ``parallel.mesh.put_span_carry``) seeds the fold and is older than
+    anything this call sees; a caller pipelining groups threads the
+    returned carry into the next call. ``carry_in=None`` seeds an empty
+    carry of ``n_tickers`` (the padded extent; required then).
+
+    Returns ``(ys, carry)``: ``ys`` this rank's ``[N, F, D/d, T/t]``.
+    ``factor_stats`` (True, or a ``(days, tickers)`` pair of logical
+    extents) adds the global ``[N, F, 9]`` sketch: ``(ys, stats,
+    carry)``. With ``result_spec`` each batch's day rows are gathered
+    over the days axis and the payload is the 1-D loop's for this ticker
+    block (the same on every day-shard). Each call counts one
+    ``carry_handoff`` dispatch in ``mesh.collective_dispatches``. The
+    donation contract is :func:`compute_packed_resident`'s for
+    ``dbufs``; the carry is never donated."""
+    from .parallel import transport
+    from .parallel.collectives import xs_carry_handoff_local
+    from .parallel.mesh import DAYS_AXIS, TICKERS_AXIS, put_span_carry
+    from .stream.carry import (combine_span_state, init_span_state,
+                               span_prefix_state)
+
+    _check_kind(kind)
+    if carry_in is None:
+        if n_tickers is None:
+            raise ValueError("carry_in=None needs n_tickers (the padded "
+                             "ticker extent) to seed the carry")
+        carry_in = put_span_carry(init_span_state(int(n_tickers)), mesh)
+    get_telemetry().meshplane.note_collective("carry_handoff")
+    d_shards = mesh.shape[DAYS_AXIS]
+    i_day = mesh.axis_index(DAYS_AXIS)
+    days_group = mesh.group(DAYS_AXIS)
+    keys = ("last_close", "n_bars", "has")
+    # the incoming carry is older than anything this call sees: day -1
+    # loses to every real day and wins only where no bar lands
+    state = {**{k: carry_in[k] for k in keys},
+             "day": torch.full(carry_in["n_bars"].shape, -1,
+                               dtype=torch.int32,
+                               device=carry_in["n_bars"].device)}
+    side = result_spec is not None or bool(factor_stats)
+
+    def step(buf, n):
+        nonlocal state
+        bars, mask = _decode(buf, spec, kind)
+        y = _stacked(bars, mask, names, session, rolling_impl,
+                     replicate_quirks, TICKERS_AXIS)
+        d_local = bars.shape[0]
+        # global day order is batch-major, day-shard-minor
+        st = span_prefix_state(bars, mask,
+                               day_base=n * d_shards * d_local
+                               + i_day * d_local)
+        state = combine_span_state(state, st)
+        if not side:
+            return y
+        # the side outputs see the batch's whole day axis
+        whole = transport.all_gather(y, days_group, dim=1)
+        res = _side_outputs(whole, result_spec, factor_stats, TICKERS_AXIS)
+        if result_spec is None:
+            return y, res[1]
+        return res
+
+    t0 = time.perf_counter()
+    with mesh:
+        out = _resident_loop(dbufs, mesh.device,
+                             "compute_packed_resident_2d", step,
+                             bool(factor_stats))
+        carry = xs_carry_handoff_local(state, combine_span_state,
+                                       DAYS_AXIS, d_shards)
+    carry = {k: carry[k] for k in keys}
+    get_telemetry().meshplane.watch_async_mesh(
+        out[0] if factor_stats else out, mesh,
+        boundary="resident.group2d", t0=t0)
+    if factor_stats:
+        return out[0], out[1], carry
+    return out, carry
 
 
 #: ticker-axis bucket size: T pads up to a multiple, so every batch of a
@@ -464,19 +661,19 @@ class ExposureTable:
         return cls.from_arrow(pq.read_table(path))
 
 
-def _pad_bucket(n: int) -> int:
-    return max(TICKER_BUCKET, -(-n // TICKER_BUCKET) * TICKER_BUCKET)
+def _pad_bucket(n: int, bucket: int = TICKER_BUCKET) -> int:
+    return max(bucket, -(-n // bucket) * bucket)
 
 
-def _grid_batch(day_data: List[Tuple[np.datetime64, Dict[str, np.ndarray]]]):
+def _grid_batch(day_data: List[Tuple[np.datetime64, Dict[str, np.ndarray]]],
+                shard_mult: int = 1):
     """Union-code, bucket-padded dense batch for a list of day columns.
 
     Returns ``(bars [D,Tp,240,5], mask [D,Tp,240], codes [Tp],
     present [D,Tp])`` where ``present`` marks codes that had rows in that
     day's file (they get an output row even if every bar was off-grid,
     matching the reference's per-group row). ``Tp`` pads to a multiple of
-    TICKER_BUCKET. The JAX package's ``_grid_batch`` without its mesh
-    multiple.
+    both TICKER_BUCKET and ``shard_mult`` (the mesh's tickers extent).
     """
     # The code axis never becomes object dtype: object put Python-level
     # comparisons inside every searchsorted/compare/isin of every day.
@@ -504,7 +701,8 @@ def _grid_batch(day_data: List[Tuple[np.datetime64, Dict[str, np.ndarray]]]):
                        else c for c in code_arrays]
         day_uniqs = [np.unique(c) for c in code_arrays]
     all_codes = np.unique(np.concatenate(day_uniqs))
-    t_pad = _pad_bucket(len(all_codes))
+    bucket = TICKER_BUCKET * shard_mult // np.gcd(TICKER_BUCKET, shard_mult)
+    t_pad = _pad_bucket(len(all_codes), int(bucket))
     n_pads = t_pad - len(all_codes)
     if int_path:
         # pad codes 10^6+i sort after every real code, like the
@@ -555,7 +753,7 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
                          failures: Optional[FailureReport] = None,
                          path_of: Optional[Dict[str, str]] = None,
                          telemetry: Optional[Telemetry] = None,
-                         device=None) -> None:
+                         device=None, mesh=None) -> None:
     """Double-buffered device pipeline: a producer thread prepares batch
     i+1 (grid + validate + wire-encode + pack) while the device computes
     batch i, through a bounded queue of two batches.
@@ -572,6 +770,13 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
     settles, so a retry re-copies the same bytes. On the CPU
     (``device='cpu'``) the same loop runs on plain host arrays.
 
+    With ``mesh`` (global rank 0 of a ``(1, n)`` mesh, the other ranks in
+    :func:`_mesh_worker`) the tickers are padded to a multiple of both
+    TICKER_BUCKET and n, each batch is packed into n per-shard buffers
+    (``wire.pack_sharded``), and a launch is :func:`_mesh_launch`:
+    scattered, computed on every rank, gathered back here. Retry,
+    isolation and the breaker are the same.
+
     Elasticity: a batch that fails on the device is retried ONCE; if the
     retry also fails — or host prep (grid/encode) fails, which is
     near-always deterministic — multi-day batches are ISOLATED per day
@@ -583,9 +788,15 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
     consumer flushes its in-flight batch before raising and the caller
     saves a resume-safe partial cache)."""
     tel = telemetry if telemetry is not None else get_telemetry()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     card = dev.type == "cuda"
-    copy_stream = torch.cuda.Stream(device=dev) if card else None
+    copy_stream = (torch.cuda.Stream(device=dev)
+                   if card and mesh is None else None)
+    n_shards, grid_kw = 1, {}
+    if mesh is not None:
+        from .parallel.mesh import TICKERS_AXIS
+        n_shards = mesh.axis_size(TICKERS_AXIS)
+        grid_kw = {"shard_mult": n_shards}
     inflight = [0]  # launched-not-yet-materialized batches (gauge)
 
     def _note_queue_depth(depth: int) -> None:
@@ -623,7 +834,10 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
 
     def pack(arrays):
         """One host buffer of ``arrays``: pinned on the card (a failed
-        pin raises), plain numpy on the CPU."""
+        pin raises), plain numpy on the CPU; on a mesh an ``[n, L]``
+        stack of per-shard buffers, scattered from the host."""
+        if mesh is not None:
+            return wire.pack_sharded(arrays, n_shards)
         if not card:
             return wire.pack_arrays(arrays)
         spec, nbytes = wire.pack_spec(arrays)
@@ -639,7 +853,7 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
         cross-thread sharing is benign). Raises on failure."""
         dates = [d for d, _ in batch]
         with timer("grid"):
-            bars, mask, codes, present = _grid_batch(batch)
+            bars, mask, codes, present = _grid_batch(batch, **grid_kw)
         if cfg.debug_validate:
             from .utils.debug import validate_batch
             validate_batch(bars, mask)
@@ -702,12 +916,18 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
         tel.counter("pipeline.batches_launched")
         copy = None
         with timer("launch"), trace_annotation("factor_batch"):
-            if card:
-                buf, copy = copy_in(buf)
-            out = compute_packed_prepared(
-                buf, spec, kind, names=names,
-                replicate_quirks=cfg.replicate_quirks,
-                rolling_impl=cfg.rolling_impl, device=dev)
+            if mesh is not None:
+                out = _mesh_launch(mesh, buf, (
+                    "batch", spec, kind, tuple(names),
+                    cfg.replicate_quirks, cfg.rolling_impl))
+                tel.counter("pipeline.h2d_bytes", buf.nbytes)
+            else:
+                if card:
+                    buf, copy = copy_in(buf)
+                out = compute_packed_prepared(
+                    buf, spec, kind, names=names,
+                    replicate_quirks=cfg.replicate_quirks,
+                    rolling_impl=cfg.rolling_impl, device=dev)
             if card:
                 # start the device->host copy now, not at materialize
                 # time: it then overlaps the next batch's launch
@@ -742,17 +962,8 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
             tel.observe("pipeline.h2d_ms", start.elapsed_time(end))
         # build ALL day tables before touching parts: a mid-loop failure
         # followed by the whole-batch retry must not leave day 1's rows
-        # appended twice (duplicate (code, date) rows in the cache); the
-        # boolean selections copy out of the (pinned) result buffer
-        batch_parts = []
-        for i, date in enumerate(dates):
-            sel = present[i]
-            cols = {"code": codes[sel].astype(object),
-                    "date": np.full(int(sel.sum()), date, "datetime64[D]")}
-            for j, n in enumerate(names):
-                cols[n] = stacked[j, i, sel].astype(np.float32)
-            batch_parts.append(ExposureTable(cols))
-        parts.extend(batch_parts)
+        # appended twice (duplicate (code, date) rows in the cache)
+        parts.extend(_batch_parts(dates, codes, present, stacked, names))
         tel.counter("pipeline.batches_completed")
         tel.counter("pipeline.days_completed", len(dates))
 
@@ -910,6 +1121,87 @@ def _run_device_pipeline(batches, names, cfg: Config, timer: Timer,
         raise
 
 
+def _batch_parts(dates, codes, present, stacked, names
+                 ) -> List[ExposureTable]:
+    """One table part a day of a batch's ``[F, D, Tp]`` host result: the
+    codes present that day (the boolean selections copy out of the
+    result buffer)."""
+    out = []
+    for i, date in enumerate(dates):
+        sel = present[i]
+        cols = {"code": codes[sel].astype(object),
+                "date": np.full(int(sel.sum()), date, "datetime64[D]")}
+        for j, n in enumerate(names):
+            cols[n] = stacked[j, i, sel].astype(np.float32)
+        out.append(ExposureTable(cols))
+    return out
+
+
+def _mesh_launch(mesh, stack, head):
+    """Global rank 0's launch of one batch on a ``(1, n)`` mesh: the
+    batch's ``head`` (the step's arguments) broadcast to every rank, the
+    ``[n, L]`` per-shard ``stack`` scattered, then :func:`_mesh_step`.
+    Returns the batch's ``[F, D, Tp]`` on this rank's device."""
+    from .parallel import transport
+
+    transport.broadcast_object(head)
+    return _mesh_step(mesh, head, [torch.from_numpy(stack[s])
+                                   for s in range(stack.shape[0])])
+
+
+def _mesh_step(mesh, head, chunks=None):
+    """One batch on every rank of a ``(1, n)`` mesh: global rank 0's
+    per-shard buffers (``chunks``, None elsewhere) scattered, each rank's
+    tickers computed on its device (the ``doc_pdf*`` rank gathered over
+    the tickers axis), the results gathered back. Returns the batch's
+    ``[F, D, Tp]`` on rank 0, None elsewhere.
+
+    The ranks swap a status before the gather, so a step that fails on
+    any rank raises on rank 0 (which retries or isolates it as any
+    failed batch) while every rank stays in step for the next one. A
+    rank that fails before one of the step's own collectives (the
+    ``doc_pdf*`` gather) leaves the others in it: gloo then raises on
+    the mismatch, NCCL waits out the process group's timeout, and the
+    run aborts with its completed batches saved."""
+    from .parallel import transport
+    from .parallel.mesh import TICKERS_AXIS
+
+    _, spec, kind, names, replicate_quirks, rolling_impl = head
+    group = mesh.group(TICKERS_AXIS)
+    mine = transport.scatter_bytes(chunks, group)
+    y, err = None, None
+    try:
+        if mesh.device.type == "cuda":
+            mine = mine.pin_memory().to(mesh.device, non_blocking=True)
+        with mesh:
+            y = _packed_step(mine, spec, kind, names, replicate_quirks,
+                             rolling_impl, None, False, None,
+                             xs_axis_name=TICKERS_AXIS)
+    except Exception as e:  # noqa: BLE001 — reported to rank 0
+        logger.warning("mesh step failed on rank %d: %s", mesh.rank, e)
+        err = f"rank {mesh.rank}: {type(e).__name__}: {e}"
+    errs = [e for e in transport.all_gather_object(err, group)
+            if e is not None]
+    if errs:
+        if mesh.rank == 0:
+            raise RuntimeError("mesh step failed: " + "; ".join(errs))
+        return None
+    parts = transport.gather(y, group)
+    return None if parts is None else torch.cat(parts, dim=-1)
+
+
+def _mesh_worker(mesh) -> None:
+    """A rank other than 0 of a mesh run of :func:`compute_exposures`:
+    serve rank 0's batches until it says the run is over."""
+    from .parallel import transport
+
+    while True:
+        head = transport.broadcast_object(None)
+        if head[0] == "exit":
+            return
+        _mesh_step(mesh, head)
+
+
 #: ``Config.backend`` values: the device pipeline, the host oracle, and
 #: the reference's own kernels (refused, :data:`POLARS_REFUSAL`)
 BACKENDS = ("torch", "numpy", "polars")
@@ -1047,8 +1339,109 @@ def compute_exposures(
       whose Chrome trace lands in that directory;
     * ``cfg.backend`` picks the path: ``'torch'`` the device pipeline,
       ``'numpy'`` the f64 oracle (:mod:`.oracle`) over each day on the
-      host (no card needed), ``'polars'`` raises NotImplementedError.
+      host (no card needed), ``'polars'`` raises NotImplementedError;
+    * ``cfg.mesh_shape = (1, n)`` shards the device pipeline's tickers
+      axis over ``n`` ranks (:func:`_run_device_pipeline` with a mesh,
+      the same retry and isolation); a days axis of
+      more than 1 is a ValueError. Without a process group the ranks are
+      spawned here (``parallel.launch``; ``telemetry`` and ``fault_hook``
+      then stay with this process and must be None) and rank 0's table
+      is returned; inside a group of ``n`` ranks (``torchrun``) every
+      rank calls this, rank 0 reads, writes the cache and returns the
+      table, the others return None. The cache equals the
+      single-device run's.
     """
+    cfg = cfg or get_config()
+    kw = dict(minute_dir=minute_dir, names=names, cache_path=cache_path,
+              cfg=cfg, progress=progress, fault_hook=fault_hook,
+              retry_failed=retry_failed, telemetry=telemetry,
+              device=device, _files_override=_files_override)
+    if cfg.mesh_shape is None:
+        return _compute_exposures(**kw)
+    return _compute_exposures_mesh(**kw)
+
+
+#: the mesh of the mesh run this thread is rank 0 of (a cache top-up
+#: inside it runs on the same ranks)
+_MESH_RUN = threading.local()
+
+MESH_DAYS_REFUSAL = (
+    "mesh_shape {shape}: the streaming pipeline shards the tickers axis "
+    "only (batch day counts vary, the last batch would not divide a days "
+    "axis) — use mesh_shape=(1, n); the days axis is for "
+    "parallel.sharded_compute_factors on fixed batches, and the resident "
+    "loops shard via compute_packed_resident_sharded / "
+    "compute_packed_resident_2d + parallel.resident_mesh")
+
+
+def _compute_exposures_mesh(**kw) -> Optional[ExposureTable]:
+    """:func:`compute_exposures` with ``cfg.mesh_shape`` set."""
+    import torch.distributed as dist
+
+    from .parallel import transport
+    from .parallel.mesh import make_mesh
+
+    cfg = kw["cfg"]
+    shape = tuple(int(v) for v in cfg.mesh_shape)
+    if len(shape) != 2 or shape[0] != 1 or shape[1] < 1:
+        raise ValueError(MESH_DAYS_REFUSAL.format(shape=shape))
+    if cfg.backend != "torch":
+        raise ValueError(f"mesh_shape {shape} shards the device pipeline; "
+                         f"backend {cfg.backend!r} runs on the host")
+    n = shape[1]
+    inner = getattr(_MESH_RUN, "mesh", None)
+    if inner is not None:
+        return _compute_exposures(**kw, mesh=inner)
+    if n == 1:
+        return _compute_exposures(**kw)
+    if not dist.is_initialized():
+        if kw["telemetry"] is not None or kw["fault_hook"] is not None:
+            raise ValueError(
+                "compute_exposures(mesh_shape=...) spawns its ranks: "
+                "telemetry and fault_hook stay in this process, pass None "
+                "(or start the ranks with torchrun)")
+        from .parallel.launch import run_ranks
+        dev = resolve_device(kw["device"])
+        args = {k: v for k, v in kw.items()
+                if k not in ("telemetry", "fault_hook", "device")}
+        args["progress"] = False
+        return run_ranks(_exposures_rank, n, args=(args, dev.type),
+                         device=dev.type)[0]
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh_shape {shape} needs {n} ranks; the process "
+                         f"group has {dist.get_world_size()}")
+    mesh = make_mesh(shape, kw["device"])
+    if dist.get_rank() != 0:
+        _mesh_worker(mesh)
+        return None
+    _MESH_RUN.mesh = mesh
+    try:
+        return _compute_exposures(**kw, mesh=mesh)
+    finally:
+        _MESH_RUN.mesh = None
+        transport.broadcast_object(("exit",))
+
+
+def _exposures_rank(rank: int, kw: dict, device_type: str):
+    """One spawned rank of :func:`compute_exposures`' mesh run."""
+    return compute_exposures(**kw, device=device_type)
+
+
+def _compute_exposures(
+    minute_dir: Optional[str] = None,
+    names: Optional[Sequence[str]] = None,
+    cache_path: Optional[str] = None,
+    cfg: Optional[Config] = None,
+    progress: bool = True,
+    fault_hook: Optional[Callable[[np.datetime64], None]] = None,
+    retry_failed: bool = False,
+    telemetry: Optional[Telemetry] = None,
+    device=None,
+    _files_override: Optional[Sequence] = None,
+    mesh=None,
+) -> ExposureTable:
+    """:func:`compute_exposures` on this process; ``mesh`` (global rank
+    0 of a mesh run) shards the device pipeline over its ranks."""
     cfg = cfg or get_config()
     if cfg.backend not in BACKENDS:
         # a typo'd backend must not silently run the device pipeline — a
@@ -1065,7 +1458,8 @@ def compute_exposures(
             "torch backend; the numpy backend reproduces the reference's "
             "quirked semantics by construction")
     # the oracle runs on the host: only the device path needs the card
-    dev = resolve_device(device) if cfg.backend == "torch" else None
+    dev = (mesh.device if mesh is not None else resolve_device(device)
+           ) if cfg.backend == "torch" else None
     minute_dir = minute_dir or cfg.minute_dir
     names = tuple(names) if names is not None else factor_names()
 
@@ -1173,7 +1567,7 @@ def compute_exposures(
             _run_device_pipeline(read_batches(), names, cfg, timer, parts,
                                  failures=failures,
                                  path_of={str(d): p for d, p in files},
-                                 telemetry=tel, device=dev)
+                                 telemetry=tel, device=dev, mesh=mesh)
 
     try:
         with trace:  # the trace is exported on every exit path

@@ -9,7 +9,8 @@ IC + decile long-short spread, :mod:`.fitness`), a host GA around it
 serveable factor name (:mod:`.registry`). ``serve/`` has a
 ``research=True`` mode that runs discovery jobs on the request queue and
 serves the results live. The population sharded over several cards
-(``DiscoveryEngine(mesh=)``) waits for the multi-GPU slice.
+(``DiscoveryEngine(mesh=)``) waits with the fleet (ROADMAP Queue 1
+item 7).
 """
 
 from .evolve import DiscoveryEngine, DiscoveryResult

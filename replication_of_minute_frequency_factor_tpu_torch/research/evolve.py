@@ -18,8 +18,8 @@ executable cache's misses (``serve.executables{outcome=miss}``, a new
 key bound) during the generation loop, where the JAX package counts
 ``xla.compiles``; after :meth:`DiscoveryEngine.warmup` it reads 0.
 
-The population-sharded engine (``mesh=``) waits for the multi-GPU slice
-and raises.
+The population-sharded engine (``mesh=``), a placement inside one server
+process, waits with the fleet and raises.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from .. import search
 SKELETONS = {"default": search.DEFAULT_SKELETON,
              "rich": search.RICH_SKELETON}
 
-_ITEM6 = "ROADMAP Queue 1 item 6"
+_ITEM7 = "ROADMAP Queue 1 item 7"
 
 
 def resolve_skeleton(skeleton) -> Tuple[int, ...]:
@@ -122,7 +122,7 @@ class DiscoveryEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "DiscoveryEngine(mesh=...): a population sharded over "
-                f"several cards is not ported yet ({_ITEM6})")
+                f"several cards is not ported yet ({_ITEM7})")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())

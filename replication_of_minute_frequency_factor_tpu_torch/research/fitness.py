@@ -47,8 +47,9 @@ from ..ops.ranking import _canonical_key
 #: stats-matrix column order (see module docstring)
 STAT_COLUMNS = ("fitness", "mean_ic", "mean_rank_ic", "spread")
 
-#: the population-sharded generation waits for the multi-GPU slice
-_ITEM6 = "ROADMAP Queue 1 item 6"
+#: the population-sharded generation is a placement inside one server
+#: process, not one program per rank: it waits with the fleet
+_ITEM7 = "ROADMAP Queue 1 item 7"
 
 
 def host_forward_returns(bars: np.ndarray, mask: np.ndarray,
@@ -147,8 +148,8 @@ def generation_fitness(genomes, feats, mask, fwd_ret, fwd_valid,
 
 
 def generation_fitness_sharded(*args, **kwargs):
-    """The population-sharded generation over several cards: waits for
-    the multi-GPU slice."""
+    """The population-sharded generation over several cards: waits with
+    the fleet."""
     raise NotImplementedError(
         "generation_fitness_sharded: a population sharded over several "
-        f"cards is not ported yet ({_ITEM6})")
+        f"cards is not ported yet ({_ITEM7})")

@@ -173,6 +173,74 @@ def finalize_with_readiness(carry, names: Tuple[str, ...],
 
 
 # --------------------------------------------------------------------------
+# the cross-day span state (the 2-D resident loop's carry)
+# --------------------------------------------------------------------------
+#
+# The 2-D resident loop splits each batch's days over day-shards, so a
+# carry threads across day-spans: the same two reorder-exact accumulators
+# ``finalize`` injects (``inc/bars`` -> ``n_bars`` and ``inc/last_close``),
+# taken from the latest day that held any bar. A resident year's end carry
+# is the state a streaming engine's accumulators hold at that day's close.
+# Both fields are pure selections and integer counts, so every fold and
+# handoff below is bitwise under any sharding or combine order.
+
+
+def init_span_state(n_tickers: int) -> Dict[str, np.ndarray]:
+    """Empty cross-day carry as host numpy (``parallel.mesh.
+    put_span_carry`` puts a rank's tickers slice on its device):
+    ``last_close`` NaN / ``n_bars`` 0 / ``has`` False per lane."""
+    return {"last_close": np.full((n_tickers,), np.nan, np.float32),
+            "n_bars": np.zeros((n_tickers,), np.int32),
+            "has": np.zeros((n_tickers,), bool)}
+
+
+def span_prefix_state(bars, mask, day_base: int = 0):
+    """Intraday prefix state of a day-span ``bars [D, T, S, 5]`` / ``mask
+    [D, T, S]``: per ticker lane, the finalize-inject pair of the LAST day
+    in the span that held any bar — ``last_close`` (that day's last
+    present close) and ``n_bars`` (that day's bar count) — plus ``has``
+    (any bar in the span) and ``day`` (the global day index that produced
+    the state, ``day_base + local``, -1 when none; the combine's ordering
+    key). ``day_base`` is a host int, so nothing waits on the device."""
+    from ..data.minute import F_CLOSE
+
+    dev = mask.device
+    n_bars = mask.sum(dim=-1, dtype=torch.int32)               # [D, T]
+    slots = torch.arange(mask.shape[-1], dtype=torch.int32, device=dev)
+    last_slot = torch.where(mask, slots, -1).amax(dim=-1)      # [D, T]
+    lc = torch.gather(bars[..., F_CLOSE], -1,
+                      last_slot.clamp(min=0).long()[..., None])[..., 0]
+    didx = torch.arange(bars.shape[0], dtype=torch.int32,
+                        device=dev)[:, None]
+    last_day = torch.where(n_bars > 0, didx, -1).amax(dim=0)   # [T]
+    sel = last_day.clamp(min=0).long()[None, :]
+    has = last_day >= 0
+
+    def pick(a):
+        return torch.gather(a, 0, sel)[0]
+
+    return {
+        "last_close": torch.where(has, pick(lc), float("nan")),
+        "n_bars": torch.where(has, pick(n_bars), 0).to(torch.int32),
+        "has": has,
+        "day": torch.where(has, last_day + int(day_base),
+                           -1).to(torch.int32),
+    }
+
+
+def combine_span_state(a, b):
+    """Associative, commutative, IDEMPOTENT combine of two span states on
+    one lane axis: the state from the strictly later day wins per lane
+    (day keys are globally distinct, so ties occur only at the empty
+    ``day == -1`` state, whose payload is the shared initial value)."""
+    newer = b["has"] & (~a["has"] | (b["day"] > a["day"]))
+    out = {k: torch.where(newer, b[k], a[k])
+           for k in ("last_close", "n_bars", "day")}
+    out["has"] = a["has"] | b["has"]
+    return out
+
+
+# --------------------------------------------------------------------------
 # serialization (mid-day restart: save -> restore -> identical tail)
 # --------------------------------------------------------------------------
 

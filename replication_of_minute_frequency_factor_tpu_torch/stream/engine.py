@@ -93,8 +93,9 @@ class StreamEngine:
 
         if mesh is not None:
             raise NotImplementedError(
-                "StreamEngine(mesh=...): a ticker-sharded carry is not "
-                "ported yet")
+                "StreamEngine(mesh=...): a ticker-sharded carry is a "
+                "placement inside one server process, not ported yet "
+                "(ROADMAP Queue 1 item 7)")
         self.device = resolve_device(device)
         self.n_tickers = int(n_tickers)
         #: the market session: sizes the day buffer ([T, S, 5]), bounds

@@ -8,8 +8,9 @@ The port of the JAX package's ``telemetry/factorplane.py``:
   as a side output of a dispatch that already produced the block, so it
   rides the block's fetch; :func:`factor_stats_host` is its numpy twin
   (copied), the parity oracle. Counts, min and max are exact on both;
-  mean and std are f32 sums whose order differs between devices and
-  frameworks.
+  the port's mean and std are f64 sums rounded once to f32, the JAX
+  package's and the twin's f32 sums whose order differs between
+  devices and frameworks.
 
 * :class:`FactorPlane` — the host half (copied), lazily bound as
   ``Telemetry.factorplane``: publishes ``factor.coverage_frac{factor=}``
@@ -61,10 +62,21 @@ DRIFT_BURST = 3
 IC_WINDOW = 32
 
 
-def factor_stats_block(x: torch.Tensor) -> torch.Tensor:
+def factor_stats_block(x: torch.Tensor,
+                       xs_axis_name=None) -> torch.Tensor:
     """``[F, ...]`` f32 -> ``[F, 9]`` f32 on ``x``'s device. Counts are
     exact (integer-valued f32); mean/std are two-pass over the finite
-    lanes; min/max/moments are NaN when a factor has no finite lane."""
+    lanes; min/max/moments are NaN when a factor has no finite lane.
+
+    The moment sums accumulate in f64 and round to f32 once, so the
+    order they are taken in (the device's reduction, the mesh's ranks)
+    moves the f32 mean and std by about an ulp of their value, even
+    where the terms cancel.
+
+    ``xs_axis_name`` (on one rank of a mesh, inside ``with mesh:``):
+    ``x`` is this rank's lanes and the sketch is the GLOBAL one over the
+    axis's ranks, the same on each: counts, min and max all-reduced
+    exactly, the f64 sums in the transport's order."""
     f = x.shape[0]
     flat = x.reshape(f, -1)
     lanes = flat.shape[1]
@@ -73,15 +85,37 @@ def factor_stats_block(x: torch.Tensor) -> torch.Tensor:
     n_nan = torch.isnan(flat).sum(dim=1, dtype=torch.int32)
     n_pos = (flat == float("inf")).sum(dim=1, dtype=torch.int32)
     n_neg = (flat == float("-inf")).sum(dim=1, dtype=torch.int32)
-    z = torch.where(finite, flat, 0.0)
-    denom = torch.clamp(n_fin.to(torch.float32), min=1.0)
-    mean = z.sum(dim=1) / denom
-    var = torch.where(finite, (flat - mean[:, None]) ** 2,
-                      0.0).sum(dim=1) / denom
-    std = torch.sqrt(torch.clamp(var, min=0.0))
+    wide = flat.to(torch.float64)
+    zsum = torch.where(finite, wide, 0.0).sum(dim=1)
+    n_lanes = torch.full((f,), float(lanes), dtype=torch.float64,
+                         device=x.device)
+    if xs_axis_name is not None:
+        from ..parallel.collectives import xs_reduce_local
+        # the counts ride the f64 sum, exactly
+        red = xs_reduce_local(torch.stack(
+            [n_lanes, n_fin.to(torch.float64), n_nan.to(torch.float64),
+             n_pos.to(torch.float64), n_neg.to(torch.float64), zsum]),
+            "sum", xs_axis_name)
+        n_lanes, zsum = red[0], red[5]
+        n_fin, n_nan, n_pos, n_neg = (red[i].to(torch.int32)
+                                      for i in range(1, 5))
+    denom = torch.clamp(n_fin.to(torch.float64), min=1.0)
+    mean = zsum / denom
+    var = torch.where(finite, (wide - mean[:, None]) ** 2,
+                      0.0).sum(dim=1)
     big = float(np.finfo(np.float32).max)
-    mn = torch.where(finite, flat, big).amin(dim=1)
-    mx = torch.where(finite, flat, -big).amax(dim=1)
+    if lanes:
+        mn = torch.where(finite, flat, big).amin(dim=1)
+        mx = torch.where(finite, flat, -big).amax(dim=1)
+    else:  # a rank whose lanes are all past the logical universe
+        mn = torch.full((f,), big, device=x.device)
+        mx = torch.full((f,), -big, device=x.device)
+    if xs_axis_name is not None:
+        var = xs_reduce_local(var, "sum", xs_axis_name)
+        ext = xs_reduce_local(torch.stack([mn, -mx]), "min", xs_axis_name)
+        mn, mx = ext[0], -ext[1]
+    std = torch.sqrt(torch.clamp(var / denom, min=0.0)).to(torch.float32)
+    mean = mean.to(torch.float32)
     has = n_fin > 0
     nan = float("nan")
     mean = torch.where(has, mean, nan)
@@ -89,11 +123,9 @@ def factor_stats_block(x: torch.Tensor) -> torch.Tensor:
     mn = torch.where(has, mn, nan)
     mx = torch.where(has, mx, nan)
     return torch.stack(
-        [torch.full((f,), float(lanes), dtype=torch.float32,
-                    device=x.device),
-         n_fin.to(torch.float32), n_nan.to(torch.float32),
-         n_pos.to(torch.float32), n_neg.to(torch.float32),
-         mean, std, mn, mx], dim=1)
+        [n_lanes.to(torch.float32), n_fin.to(torch.float32),
+         n_nan.to(torch.float32), n_pos.to(torch.float32),
+         n_neg.to(torch.float32), mean, std, mn, mx], dim=1)
 
 
 def factor_stats_host(x: np.ndarray) -> np.ndarray:

@@ -1,7 +1,6 @@
-"""Mesh observability plane: per-shard balance telemetry, the
-one-device surface.
+"""Mesh observability plane: per-shard balance telemetry.
 
-The port of the JAX package's ``telemetry/meshplane.py`` for one card.
+The port of the JAX package's ``telemetry/meshplane.py``.
 :class:`MeshPlane` publishes:
 
 * ``mesh.shard_time_s{shard=}`` gauges and ``mesh.shard_skew_ratio`` —
@@ -14,12 +13,14 @@ The port of the JAX package's ``telemetry/meshplane.py`` for one card.
 * ``mesh.occupancy_frac{boundary=}`` gauge + histogram — useful-lane
   fraction of a dispatch (streaming scans: present bars / lanes;
   streaming cohort scatters: real rows / cohort size; serve
-  micro-batches: drained requests / max_batch).
-
-The methods that read a device mesh (``measure_ready_mesh``,
-``watch_async_mesh``, ``record_axis_times``, ``note_collective``) raise
-``NotImplementedError``: multi-GPU runs are not ported yet (ROADMAP
-Queue 1 item 6).
+  micro-batches: drained requests / max_batch);
+* on a ``(days, tickers)`` mesh of ranks (``parallel.mesh.Mesh``):
+  per-rank completion watermarks gathered over the ranks
+  (:meth:`MeshPlane.measure_ready_mesh`, or :meth:`watch_async_mesh`
+  whose gather runs at :meth:`drain`), ``mesh.shard_time_s{axis=,
+  shard=}``/``mesh.shard_skew_ratio{axis=}`` per axis
+  (:meth:`record_axis_times`), and ``mesh.collective_dispatches{label=}``
+  (:meth:`note_collective`).
 """
 
 from __future__ import annotations
@@ -38,10 +39,6 @@ SKEW_BURST = 3
 #: bounded wait for outstanding watcher threads at drain time
 DRAIN_TIMEOUT_S = 30.0
 
-_MESH_WAITS = ("a device mesh is not ported: multi-GPU runs wait for "
-               "ROADMAP Queue 1 item 6")
-
-
 def _median(vals: List[float]) -> float:
     s = sorted(vals)
     n = len(s)
@@ -58,7 +55,7 @@ GLC_CONTRACT = {
                    "_skew_bursts", "_boundaries", "_last_times",
                    "_last_skew", "_slow_shard", "_pad_waste",
                    "_pad_waste_axes", "_axes", "_occupancy",
-                   "_collectives"),
+                   "_collectives", "_pending_mesh"),
         "init": (),
         "locked": (),
     },
@@ -94,6 +91,8 @@ class MeshPlane:
         self._axes: Dict[str, dict] = {}
         self._occupancy: Optional[float] = None
         self._collectives = 0
+        #: watch_async_mesh samples waiting for drain()'s gather
+        self._pending_mesh: List[list] = []
         from .lockcheck import maybe_install
         maybe_install(self)
 
@@ -208,18 +207,123 @@ class MeshPlane:
         return self.record_shard_times(times, boundary=boundary)
 
     def record_axis_times(self, axis: str, times: Dict) -> dict:
-        """Per-axis watermarks of a 2-D mesh: not ported."""
-        raise NotImplementedError(_MESH_WAITS)
+        """One per-AXIS balance sample: ``times`` maps an axis
+        coordinate (day-shard row / ticker-shard column) to its
+        completion watermark. Publishes ``mesh.shard_time_s{axis=,
+        shard=}`` gauges and ``mesh.shard_skew_ratio{axis=}`` (whether
+        the day split balances, apart from the ticker split). Does not
+        advance the skew-burst trigger (the flat per-rank sample owns
+        that); returns the axis summary."""
+        try:
+            clean = {str(k): max(0.0, float(v))
+                     for k, v in dict(times).items()}
+        except (TypeError, ValueError):
+            return {}
+        if not clean:
+            return {}
+        tel = self._tel()
+        for k, v in sorted(clean.items()):
+            tel.gauge("mesh.shard_time_s", round(v, 6), shard=k,
+                      axis=axis)
+        med = _median(list(clean.values()))
+        worst = max(clean, key=clean.get)
+        skew = (clean[worst] / med) if med > 0 else 1.0
+        tel.gauge("mesh.shard_skew_ratio", round(skew, 4), axis=axis)
+        summary = {"shard_time_s": {k: round(v, 6)
+                                    for k, v in clean.items()},
+                   "skew_ratio": round(skew, 4), "slow_shard": worst}
+        with self._lock:
+            self._axes[axis] = summary
+        return summary
+
+    @staticmethod
+    def _ready_time(out, t0: float) -> float:
+        """Seconds from ``t0`` until the work queued before now on
+        ``out``'s device is done (an event waited on: no stream or
+        device synchronize)."""
+        import torch
+        if getattr(out, "is_cuda", False):
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(out.device))
+            ev.synchronize()
+        return time.perf_counter() - t0
+
+    def _record_mesh(self, mesh, local: float, boundary: str) -> dict:
+        """Gather every rank's watermark (a collective: every rank of
+        the mesh calls it) and publish the flat per-rank sample and the
+        per-axis aggregations: a day-shard row's watermark is the max
+        over its ticker shards (the row is done when its straggler is),
+        and vice versa."""
+        import torch.distributed as dist
+        if mesh.size > 1 and dist.is_initialized():
+            box = [None] * dist.get_world_size()
+            dist.all_gather_object(box, (mesh.rank, str(mesh.device),
+                                         float(local)))
+        else:
+            box = [(mesh.rank, str(mesh.device), float(local))]
+        t = mesh.shape["tickers"]
+        times: Dict[str, float] = {}
+        rows: Dict[str, float] = {}
+        cols: Dict[str, float] = {}
+        for r, dev, v in box:
+            times[f"rank{r}:{dev}"] = v
+            i, j = divmod(int(r), t)
+            rows[f"day{i}"] = max(rows.get(f"day{i}", 0.0), v)
+            cols[f"ticker{j}"] = max(cols.get(f"ticker{j}", 0.0), v)
+        flat = self.record_shard_times(times, boundary=boundary)
+        axes = {"days": self.record_axis_times("days", rows),
+                "tickers": self.record_axis_times("tickers", cols)}
+        return {**flat, "axes": axes}
 
     def measure_ready_mesh(self, out, mesh, boundary: str = "manual",
                            t0: Optional[float] = None) -> dict:
-        """Per-device watermarks over a 2-D mesh: not ported."""
-        raise NotImplementedError(_MESH_WAITS)
+        """:meth:`measure_ready` for a ``(days, tickers)`` mesh of ranks:
+        each rank waits for its own device's work on ``out`` (this
+        rank's block), the watermarks are gathered over the ranks, and
+        the flat per-rank sample (burst trigger included) and the
+        per-axis views are published. A collective: every rank calls
+        it. Never raises on a failed wait (the sample is dropped)."""
+        if t0 is None:
+            t0 = time.perf_counter()
+        try:
+            local = self._ready_time(out, t0)
+        except Exception:  # noqa: BLE001 — observation must not kill work
+            self._tel().counter("mesh.sample_failures", boundary=boundary)
+            local = -1.0
+        return self._record_mesh(mesh, local, boundary)
 
     def watch_async_mesh(self, out, mesh, boundary: str = "manual",
                          t0: Optional[float] = None) -> None:
-        """:meth:`measure_ready_mesh` on a thread: not ported."""
-        raise NotImplementedError(_MESH_WAITS)
+        """:meth:`measure_ready_mesh` without blocking the caller: a
+        daemon thread waits out this rank's device work, and the gather
+        over the ranks runs at :meth:`drain` (on the caller's thread, so
+        every rank's collectives stay in one order)."""
+        if t0 is None:
+            t0 = time.perf_counter()
+        slot = [mesh, boundary, None]
+        import torch
+        ev = None
+        if getattr(out, "is_cuda", False):
+            # recorded here, on the caller's stream; the thread only
+            # waits on it
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(out.device))
+
+        def wait():
+            try:
+                if ev is not None:
+                    ev.synchronize()
+                slot[2] = time.perf_counter() - t0
+            except Exception:  # noqa: BLE001 — observation only
+                slot[2] = -1.0
+
+        th = threading.Thread(target=wait, daemon=True,
+                              name="meshplane-watch-mesh")
+        with self._lock:
+            self._threads = [t for t in self._threads if t.is_alive()]
+            self._threads.append(th)
+            self._pending_mesh.append(slot)
+        th.start()
 
     def watch_async(self, out, boundary: str = "manual",
                     t0: Optional[float] = None) -> None:
@@ -239,13 +343,20 @@ class MeshPlane:
         th.start()
 
     def drain(self, timeout: float = DRAIN_TIMEOUT_S) -> None:
-        """Join outstanding watchers (bounded)."""
+        """Join outstanding watchers (bounded), then publish the pending
+        :meth:`watch_async_mesh` samples (a collective per sample, in
+        the order they were taken: every rank of their mesh drains)."""
         deadline = time.monotonic() + timeout
         with self._lock:
             threads = list(self._threads)
             self._threads = []
+            pending = list(self._pending_mesh)
+            self._pending_mesh = []
         for th in threads:
             th.join(max(0.0, deadline - time.monotonic()))
+        for mesh, boundary, local in pending:
+            self._record_mesh(mesh, -1.0 if local is None else local,
+                              boundary)
 
     # --- padding / occupancy ---------------------------------------------
     def record_pad_waste(self, n_valid: int, n_padded: int,
@@ -282,8 +393,13 @@ class MeshPlane:
             self._occupancy = frac
 
     def note_collective(self, label: str) -> None:
-        """Count one host-side collective dispatch: not ported."""
-        raise NotImplementedError(_MESH_WAITS)
+        """Count one host-side collective dispatch (the span around it
+        carries ``kind=host_dispatch``; on-device collective time comes
+        from the trace attribution)."""
+        self._tel().counter("mesh.collective_dispatches",
+                            label=str(label))
+        with self._lock:
+            self._collectives += 1
 
     # --- report -----------------------------------------------------------
     def summary(self) -> dict:
@@ -308,7 +424,8 @@ class MeshPlane:
                                    if self._pad_waste is not None
                                    else None),
                 # per-axis views: pad waste keyed by the padded axis;
-                # ``axes`` stays empty until a 2-D mesh is ported
+                # ``axes`` carries the last per-axis watermarks/skew
+                # (mesh samples only)
                 "pad_waste_frac_by_axis": {
                     k: round(v, 6)
                     for k, v in self._pad_waste_axes.items()},

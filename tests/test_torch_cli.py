@@ -163,7 +163,7 @@ def test_the_cli_refuses_the_cpu_unless_asked(workspace, capsys,
 
 @pytest.mark.parametrize("argv", [
     ["compute", "--minute-dir", "d", "--cache", "c", "--backend", "jax"],
-    ["compute", "--minute-dir", "d", "--cache", "c", "--mesh-tickers", "2"],
+    ["compute", "--minute-dir", "d", "--cache", "c", "--mesh-tickers", "x"],
     ["compute", "--minute-dir", "d", "--cache", "c", "--profile-dir"],
     ["--profile-dir", "p"],
     ["compute", "--minute-dir", "d", "--cache", "c", "--rolling-impl",
@@ -230,6 +230,37 @@ def test_compute_backend_numpy_matches_the_jax_cli(workspace, capsys):
     for k in a.factor_names:
         np.testing.assert_array_equal(a.columns[k].view(np.int32),
                                       b.columns[k].view(np.int32), err_msg=k)
+
+
+def test_compute_mesh_tickers_matches_the_jax_cli(workspace, capsys):
+    """``compute --mesh-tickers 2`` spawns two gloo ranks: the same summary
+    as the JAX CLI's sharded run, and a cache bitwise the port's
+    single-device cache; ``--telemetry-dir`` with spawned ranks and
+    ``N < 1`` exit 2."""
+    from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
+        ExposureTable)
+    kline, _pv, cache, _tmp = workspace
+    argv = ["compute", "--minute-dir", kline, "--cache", "CACHE",
+            "--factors", "vol_return1min,mmt_ols_qrs,doc_pdf80", "--quiet",
+            "--days-per-batch", "4"]
+    port, ref = _both(capsys, argv + ["--mesh-tickers", "2"], cache)
+    assert {k: port[k] for k in port if k != "cache"} \
+        == {k: ref[k] for k in ref if k != "cache"}
+    assert main([a if a != "CACHE" else cache + ".one" for a in argv]
+                + ["--device", "cpu"]) == 0
+    a = ExposureTable.load(cache + ".port")
+    b = ExposureTable.load(cache + ".one")
+    assert list(a.columns) == list(b.columns) and len(a) == len(b) > 0
+    for k in a.columns:
+        got, want = np.asarray(a.columns[k]), np.asarray(b.columns[k])
+        if got.dtype == np.float32:
+            got, want = got.view(np.int32), want.view(np.int32)
+        np.testing.assert_array_equal(got, want, err_msg=k)
+    capsys.readouterr()
+    for extra in (["--mesh-tickers", "0"],
+                  ["--mesh-tickers", "2", "--telemetry-dir", _tmp]):
+        assert main([a if a != "CACHE" else cache + ".x" for a in argv]
+                    + extra + ["--device", "cpu"]) == 2
 
 
 def test_compute_backend_polars_exits_2_with_the_reason(workspace, capsys):

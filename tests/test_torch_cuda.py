@@ -766,3 +766,116 @@ def test_trace_capture_on_the_card_names_the_kernel(tmp_path):
     assert {"launch", "device"} <= set(s["stage_annotations_us"])
     assert {"fusion", "reduction", "sort_scan"} <= set(block["by_class_s"])
     assert tel.registry.counter_value("attribution.trace_captures") == 1
+
+
+# --------------------------------------------------------------------------
+# the sharded loops and the sharded driver: two ranks on the card
+# --------------------------------------------------------------------------
+
+def _two_rank_year(days=4, tickers=256, n=2):
+    from torch_cases import make_batch
+    return [make_batch(np.random.default_rng([7, i]), days, tickers)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_sharded_resident_year_on_two_ranks_matches_single_device(
+        tmp_path):
+    """The 1-D loop on two ranks sharing the card (gloo, staged through
+    pinned host buffers) against the single-device loop on the card: all
+    58 factors bitwise (the JAX package's ulp pair within its 16-eps bar),
+    the tiled kernel launched once a step on each rank."""
+    _card()
+    from torch_cases import (encode_year, encode_year_sharded, run_on_ranks,
+                             sharded_misses)
+    names = factor_names()
+    year = _two_rank_year()
+    bufs, spec, kind = encode_year(year)
+    want = pl.compute_packed_resident(
+        [torch.from_numpy(b).cuda() for b in bufs], spec, kind, names,
+        device="cuda").cpu().numpy()
+    stacks, sspec, skind, _ = encode_year_sharded(year, True, 2)
+    res = run_on_ranks([("y", "resident_1d", dict(
+        stacks=stacks, spec=sspec, kind=skind, names=names,
+        device="cuda"))], 2, workdir=tmp_path, device="cuda")
+    got = np.concatenate([r["y"]["ys"] for r in sorted(
+        res, key=lambda r: r["y"]["coord"])], axis=-1)
+    assert sharded_misses(names, got, want) == {}
+    for r in res:
+        assert r["y"]["launches"] == {"tiled": 2, "rowwise": 0}
+        assert r["y"]["backend"] == "gloo"
+
+
+@pytest.mark.cuda
+def test_resident_2d_on_the_card_counts_its_handoffs(tmp_path):
+    """The 2-D loop on a (2, 1) mesh of two ranks on the card, one batch
+    a call: one carry handoff a call, and the tiles and the year-end carry
+    equal the single-device loop and span fold."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.stream import (
+        carry as scarry)
+    from torch_cases import (encode_year, encode_year_2d, run_on_ranks,
+                             sharded_misses)
+    names = ("vol_return1min", "mmt_ols_qrs", "doc_pdf60")
+    year = _two_rank_year()
+    bufs, spec, kind = encode_year(year)
+    dbufs = [torch.from_numpy(b).cuda() for b in bufs]
+    want = pl.compute_packed_resident([b.clone() for b in dbufs], spec,
+                                      kind, names,
+                                      device="cuda").cpu().numpy()
+    state = {k: torch.from_numpy(v).cuda()
+             for k, v in scarry.init_span_state(256).items()}
+    state["day"] = torch.full((256,), -1, dtype=torch.int32, device="cuda")
+    for n, b in enumerate(dbufs):
+        state = scarry.combine_span_state(state, scarry.span_prefix_state(
+            *pl._decode(b, spec, kind), n * 4))
+    stacks, sspec, skind, t_pad, _ = encode_year_2d(year, True, 2, 1)
+    res = run_on_ranks([("y", "resident_2d", dict(
+        stacks=stacks, spec=sspec, kind=skind, names=names, shape=(2, 1),
+        group=1, t_pad=t_pad, device="cuda"))], 2, workdir=tmp_path,
+        device="cuda")
+    tiles = sorted(res, key=lambda r: r["y"]["coord"])
+    got = np.concatenate([r["y"]["ys"] for r in tiles], axis=-2)
+    assert sharded_misses(names, got, want) == {}
+    for r in res:
+        assert r["y"]["handoffs"] == 2  # one a call, two calls
+        for k in ("last_close", "n_bars", "has"):
+            assert np.array_equal(
+                np.asarray(r["y"]["carry"][k]).view(np.uint8),
+                state[k].cpu().numpy().view(np.uint8)), k
+
+
+@pytest.mark.cuda
+def test_compute_mesh_tickers_2_on_the_card_matches_the_unsharded_cache(
+        tmp_path):
+    """``compute --mesh-tickers 2`` on the card (two ranks sharing it)
+    writes the cache of the single-device run, bit for bit."""
+    _card()
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from replication_of_minute_frequency_factor_tpu_torch.__main__ import (
+        main)
+    from replication_of_minute_frequency_factor_tpu_torch.data.synthetic import (
+        synth_day)
+    kline = tmp_path / "kline"
+    kline.mkdir()
+    rng = np.random.default_rng(5)
+    for ds in ("2024-01-02", "2024-01-03", "2024-01-04", "2024-01-05"):
+        cols = synth_day(rng, n_codes=300, date=ds, missing_prob=0.05)
+        pq.write_table(pa.table(
+            {"code": pa.array(cols["code"].astype(np.int64)),
+             **{k: pa.array(cols[k]) for k in
+                ("time", "open", "high", "low", "close", "volume")}}),
+            str(kline / (ds.replace("-", "") + ".parquet")))
+    one, two = str(tmp_path / "one.parquet"), str(tmp_path / "two.parquet")
+    base = ["compute", "--minute-dir", str(kline), "--quiet",
+            "--days-per-batch", "2"]
+    assert main(base + ["--cache", one]) == 0
+    assert main(base + ["--cache", two, "--mesh-tickers", "2"]) == 0
+    a, b = pl.ExposureTable.load(two), pl.ExposureTable.load(one)
+    assert list(a.columns) == list(b.columns) and len(a) == len(b) > 0
+    for k in a.columns:
+        x, y = np.asarray(a.columns[k]), np.asarray(b.columns[k])
+        if x.dtype == np.float32:
+            x, y = x.view(np.int32), y.view(np.int32)
+        np.testing.assert_array_equal(x, y, err_msg=k)

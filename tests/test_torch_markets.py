@@ -114,7 +114,9 @@ def test_config_fields_carry_across(monkeypatch):
             "/data/pool.parquet", "fast")
     # every port field is a JAX field; the others are not fields at all
     assert {f.name for f in dataclasses.fields(t)} <= set(vars(j))
-    assert not hasattr(t, "mesh_shape") and not hasattr(t, "not_ported")
+    assert t.mesh_shape is None and j.mesh_shape is None
+    assert not hasattr(t, "compile_telemetry") \
+        and not hasattr(t, "not_ported")
 
 
 def test_sessions_module_pins_every_jax_constant():

@@ -235,7 +235,19 @@ def test_the_slice_whole_matches_jax(minute_dir, tmp_path):
     assert np.isfinite(got["group_return"]).any()
 
 
-def test_aliased_kernel_matches_jax(minute_dir, tmp_path):
+@pytest.fixture
+def _restore_aliases():
+    """The alias this file's test registers leaves the process's registry
+    as it was: other files that share the worker check its names."""
+    live = (registry.ALIASES, registry.FINALIZE_CLASSES)
+    saved = [dict(d) for d in live]
+    yield
+    for d, before in zip(live, saved):
+        d.clear()
+        d.update(before)
+
+
+def test_aliased_kernel_matches_jax(minute_dir, tmp_path, _restore_aliases):
     t, j = (F("my_custom_vol", **kw).cal_exposure_by_min_data(
         calculate_method="vol_return1min", minute_dir=minute_dir,
         path=str(tmp_path / sub), cfg=C(days_per_batch=4), progress=False)

@@ -74,7 +74,10 @@ def test_importing_every_port_module_loads_no_jax():
                 "telemetry.slo", "telemetry.timeline",
                 "telemetry.meshplane", "telemetry.validate",
                 "telemetry.aggregate", "oracle", "oracle.kernels",
-                "oracle.stats", "utils.upload"):
+                "oracle.stats", "utils.upload", "parallel",
+                "parallel.mesh", "parallel.collectives",
+                "parallel.transport", "parallel.multihost",
+                "parallel.launch"):
         assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
     # pyarrow loads only inside the functions that read and write files,

@@ -354,9 +354,11 @@ def test_evolve_deterministic_under_explicit_rng():
 
 
 def test_the_population_sharded_parts_wait_for_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Population-sharded discovery is a placement inside one server
+    process: it moved with the fleet to ROADMAP Queue 1 item 7."""
+    with pytest.raises(NotImplementedError, match="item 7"):
         DiscoveryEngine(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         PF.generation_fitness_sharded()
 
 

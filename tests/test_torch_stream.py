@@ -341,8 +341,11 @@ def test_injected_int32_count_gives_the_batch_bits():
     got = compute_factors(b, m, names=names, inject=inject)
     for n in names:
         assert same_bits(got[n], want[n]), n
-    with pytest.raises(NotImplementedError, match="xs_axis_name"):
-        DayContext(b, m, xs_axis_name="tickers")
+    # a sharded tickers axis resolves through the active mesh: outside
+    # one the cross-sectional rank has no group to gather over
+    ctx = DayContext(b, m, xs_axis_name="tickers")
+    with pytest.raises(RuntimeError, match="active mesh"):
+        ctx.eod_ret_global_rank
 
 
 # --------------------------------------------------------------------------
@@ -425,7 +428,7 @@ def test_ticker_count_mismatch_and_bad_inputs_raise():
         with pytest.raises(ValueError, match="cohort indices"):
             eng.ingest_cohort(np.zeros((1, 5), np.float32),
                               np.array([bad], np.int32))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 7"):
         _engine(4, names=FAMILY[:1], mesh=object())
     with pytest.raises(ValueError, match="finalize_impl"):
         _engine(4, names=FAMILY[:1], finalize_impl="warm")

@@ -290,15 +290,28 @@ def test_mesh_plane_one_device_surface_equals_jax():
             s.pop("burst_dump")
         res[label] = (samples, plane.summary(), tel.registry.snapshot())
     assert res["port"] == res["jax"]
+    # the mesh methods: per-axis samples and collective counts as JAX's
+    res = {}
+    for label, mod, pkg in (("jax", jmp, jtel), ("port", tmp_, ttel)):
+        tel = pkg.Telemetry()
+        plane = mod.MeshPlane(telemetry=tel)
+        axes = [plane.record_axis_times("days", {"day0": 1.0, "day1": 3.0}),
+                plane.record_axis_times("tickers", {"ticker0": 0.5})]
+        plane.note_collective("psum")
+        plane.note_collective("carry_handoff")
+        res[label] = (axes, plane.summary(), tel.registry.snapshot())
+    assert res["port"] == res["jax"]
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh)
     plane = tmp_.MeshPlane(telemetry=ttel.Telemetry())
-    for call in (lambda: plane.record_axis_times("days", {"0": 1.0}),
-                 lambda: plane.measure_ready_mesh(None, None),
-                 lambda: plane.watch_async_mesh(None, None),
-                 lambda: plane.note_collective("psum")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
     out = plane.measure_ready(torch.zeros(3))
     assert out["n_shards"] == 1
+    mesh = make_mesh(None, "cpu")
+    out = plane.measure_ready_mesh(torch.zeros(3), mesh, boundary="m")
+    assert out["n_shards"] == 1 and set(out["axes"]) == {"days", "tickers"}
+    plane.watch_async_mesh(torch.zeros(3), mesh, boundary="w")
+    plane.drain()
+    assert plane.summary()["boundaries"] == {"manual": 1, "m": 1, "w": 1}
 
 
 def test_hbm_sampler_is_unavailable_on_the_cpu():

@@ -384,3 +384,572 @@ class Year:
             raise IndexError(i)
         return make_batch(np.random.default_rng([self.seed, i]),
                           self.n_days, self.n_tickers, self.session)
+
+
+def _pad_year(batches, d_mult: int, t_mult: int):
+    """Tickers padded with masked lanes to ``t_mult``, days with fully
+    masked filler days to ``d_mult`` (``bench.encode_year_2d``'s
+    padding). Returns ``(batches, t_pad, d_pad)``."""
+    t = batches[0][0].shape[1]
+    d = batches[0][0].shape[0]
+    t_pad = -(-t // t_mult) * t_mult
+    d_pad = -(-d // d_mult) * d_mult
+    if t_pad != t or d_pad != d:
+        pad_b = [(0, d_pad - d), (0, t_pad - t), (0, 0), (0, 0)]
+        pad_m = [(0, d_pad - d), (0, t_pad - t), (0, 0)]
+        batches = [(np.pad(b, pad_b), np.pad(m, pad_m))
+                   for b, m in batches]
+    return batches, t_pad, d_pad
+
+
+def _encode_packed(batches, use_wire, pack, max_passes):
+    """``bench.encode_year``'s shared-floor loop with ``pack(arrays)``
+    as the packer: ``(packs, kind)``."""
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+
+    if use_wire:
+        floor: dict = {}
+        encs = [wire.encode(b, m, floor=floor) for b, m in batches]
+        for _ in range(max_passes):
+            if not all(e is not None for e in encs):
+                break
+            packs = [pack(e.arrays) for e in encs]
+            if len({p[1] for p in packs}) == 1:
+                return packs, "wire"
+            encs = [wire.encode(b, m, floor=floor) for b, m in batches]
+    return [pack((b, m.view(np.uint8))) for b, m in batches], "raw"
+
+
+def encode_year_sharded(batches, use_wire: bool, n_shards: int,
+                        max_passes: int = 4, bucket: int = 1):
+    """``bench.encode_year_sharded``: tickers padded with masked lanes to
+    a multiple of lcm(bucket, n_shards), the shared widen-only floor,
+    each batch packed as an ``[S, L]`` per-shard stack
+    (``wire.pack_sharded``). Returns ``(stacks, spec, kind, t_pad)``."""
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+
+    mult = int(bucket * n_shards // np.gcd(bucket, n_shards))
+    batches, t_pad, _ = _pad_year(list(batches), 1, mult)
+    packs, kind = _encode_packed(
+        batches, use_wire, lambda a: wire.pack_sharded(a, n_shards),
+        max_passes)
+    return [p[0] for p in packs], packs[0][1], kind, t_pad
+
+
+def encode_year_2d(batches, use_wire: bool, d_shards: int, t_shards: int,
+                   max_passes: int = 4, bucket: int = 1):
+    """``bench.encode_year_2d``: tickers padded to lcm(bucket, t_shards),
+    days to a multiple of ``d_shards`` with fully masked filler days,
+    each batch packed as a ``[Sd, St, L]`` per-tile stack. Returns
+    ``(stacks, spec, kind, t_pad, d_pad)``."""
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+
+    mult = int(bucket * t_shards // np.gcd(bucket, t_shards))
+    batches, t_pad, d_pad = _pad_year(list(batches), d_shards, mult)
+    packs, kind = _encode_packed(
+        batches, use_wire,
+        lambda a: wire.pack_sharded_2d(a, d_shards, t_shards), max_passes)
+    return [p[0] for p in packs], packs[0][1], kind, t_pad, d_pad
+
+
+# --------------------------------------------------------------------------
+# checks on a group of ranks (tests/test_torch_parallel.py,
+# test_torch_sharded_resident.py and chip_smoke.py's phase 14)
+# --------------------------------------------------------------------------
+
+def run_on_ranks(jobs, world: int, workdir=None, device="cpu",
+                 timeout_s: float = 240.0, backend=None):
+    """Every job of ``jobs`` (``[(name, kind, kwargs)]``) on ``world``
+    spawned ranks of one process group, in order; returns one
+    ``{name: result}`` a rank (results are host numpy, dicts of it, or
+    plain values; they come back through files under ``workdir``)."""
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        launch)
+
+    return launch.run_ranks(rank_jobs, world, args=(list(jobs),),
+                            device=device, backend=backend,
+                            timeout_s=timeout_s,
+                            workdir=None if workdir is None
+                            else str(workdir))
+
+
+def rank_jobs(rank: int, jobs):
+    out = {}
+    for name, kind, kw in jobs:
+        out[name] = globals()[f"job_{kind}"](rank, **kw)
+    return out
+
+
+def _host(x):
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_host(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return x
+
+
+def job_resident_1d(rank, stacks, spec, kind, names, device="cpu",
+                    result_spec=None, factor_stats=False):
+    """``compute_packed_resident_sharded`` on a ``(1, world)`` mesh over
+    the host ``[N, S, L]`` year: this rank's output (and side outputs),
+    its mesh coordinate, the launches of the tiled kernel."""
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh, put_packed_year)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        get_telemetry)
+
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+
+    mesh = make_mesh(None, device)
+    bufs = put_packed_year(np.stack(stacks), mesh)
+    rolling_cuda.reset_launches()
+    out = pipeline.compute_packed_resident_sharded(
+        bufs, spec, kind, mesh, names, result_spec=result_spec,
+        factor_stats=factor_stats)
+    launches = dict(rolling_cuda.launches)
+    get_telemetry().meshplane.drain()
+    res = {"coord": mesh.coordinate, "backend": mesh.backend,
+           "launches": launches}
+    if factor_stats:
+        res["ys"], res["stats"] = _host(out)
+    else:
+        res["ys"] = _host(out)
+    return res
+
+
+def job_resident_2d(rank, stacks, spec, kind, names, shape, group,
+                    t_pad, device="cpu", factor_stats=False,
+                    result_spec=None):
+    """``compute_packed_resident_2d`` on a ``shape`` mesh over the host
+    ``[N, Sd, St, L]`` year, ``group`` batches a call with the carry
+    threaded between calls: this rank's tiles, its year-end carry, the
+    carry-handoff dispatches counted and the mesh block."""
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh, put_packed_year_2d, put_span_carry)
+    from replication_of_minute_frequency_factor_tpu_torch.stream.carry import (
+        init_span_state)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, set_telemetry)
+
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+
+    tel = set_telemetry(Telemetry())
+    mesh = make_mesh(tuple(shape), device)
+    if isinstance(stacks, str):  # a .npy file: each rank reads its tiles
+        stacks = np.load(stacks, mmap_mode="r")
+    carry = put_span_carry(init_span_state(t_pad), mesh)
+    rolling_cuda.reset_launches()
+    ys, stats = [], []
+    for g0 in range(0, len(stacks), group):
+        grp = stacks[g0:g0 + group]
+        bufs = put_packed_year_2d(
+            grp if isinstance(grp, np.ndarray) else np.stack(grp), mesh)
+        out = pipeline.compute_packed_resident_2d(
+            bufs, spec, kind, mesh, names, carry_in=carry,
+            factor_stats=factor_stats, result_spec=result_spec)
+        carry = out[-1]
+        ys.append(_host(out[0]))
+        if factor_stats:
+            stats.append(_host(out[1]))
+    tel.meshplane.drain()
+    return {"coord": mesh.coordinate, "ys": np.concatenate(ys),
+            "stats": np.concatenate(stats) if stats else None,
+            "carry": _host(carry),
+            "handoffs": tel.registry.counter_value(
+                "mesh.collective_dispatches", label="carry_handoff"),
+            "launches": dict(rolling_cuda.launches),
+            "mesh": tel.meshplane.summary()}
+
+
+def job_donation(rank, stacks_1d, spec_1d, stacks_2d, spec_2d, kind,
+                 names, t_pad):
+    """The donation contract on both sharded loops, donation forced on
+    (the CPU never donates): the handles are dead (any use raises
+    DonatedBufferError), ``Config.debug_validate`` names the contract at
+    the next entry, and the 2-D loop's carry stays usable."""
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        config, pipeline)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh, put_packed_year, put_packed_year_2d, put_span_carry)
+    from replication_of_minute_frequency_factor_tpu_torch.stream.carry import (
+        init_span_state)
+
+    pipeline._donate_device_buffers = lambda cfg=None, device=None: True
+    out = {}
+    for label, shape, run in (
+            ("1d", None, lambda m, b, c: pipeline.
+             compute_packed_resident_sharded(b, spec_1d, kind, m, names)),
+            ("2d", (2, 2), lambda m, b, c: pipeline.
+             compute_packed_resident_2d(b, spec_2d, kind, m, names,
+                                        carry_in=c))):
+        mesh = make_mesh(shape, "cpu")
+        bufs = (put_packed_year(np.stack(stacks_1d), mesh) if shape is None
+                else put_packed_year_2d(np.stack(stacks_2d), mesh))
+        carry = put_span_carry(init_span_state(t_pad), mesh)
+        run(mesh, bufs, carry)
+        res = {"dead": all(type(b).__name__ == "_DonatedTensor"
+                           for b in bufs)}
+        try:
+            bufs[0].sum()
+            res["use"] = "no error"
+        except pipeline.DonatedBufferError as e:
+            res["use"] = str(e)
+        prev = config.get_config()
+        config.set_config(config.Config(debug_validate=True))
+        try:
+            run(mesh, bufs, carry)
+            res["guard"] = "no error"
+        except pipeline.DonatedBufferError as e:
+            res["guard"] = str(e)
+        finally:
+            config.set_config(prev)
+        res["carry_usable"] = int(carry["n_bars"].sum()) == 0
+        out[label] = res
+    return out
+
+
+def job_xs(rank, x, y, m, stats, n_pop, k):
+    """The cross-sectional collectives on a ``(1, world)`` mesh over this
+    rank's tickers of the host ``[dates, T]`` matrices; returns this
+    rank's lanes (or the replicated values) of each."""
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        collectives as xc, make_mesh)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel.mesh import (
+        local_slice)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, set_telemetry)
+
+    tel = set_telemetry(Telemetry())
+    mesh = make_mesh(None, "cpu")
+    spec = (None, "tickers")
+    lx, ly, lm = (torch.from_numpy(local_slice(a, spec, mesh).copy())
+                  for a in (x, y, m))
+    out = {"coord": mesh.coordinate,
+           "mean": xc.xs_masked_mean(mesh, lx, lm),
+           "std": xc.xs_masked_std(mesh, lx, lm),
+           "ic": xc.xs_pearson(mesh, lx, ly, lm),
+           "rank": xc.xs_rank(mesh, lx, lm),
+           "qcut": {g: xc.xs_qcut(mesh, lx, lm, group_num=g)
+                    for g in (3, 5, 10)}}
+    with mesh:
+        flat = lambda a: a.reshape(1, -1)  # noqa: E731
+        out["grank"] = xc.xs_global_rank_local(flat(lx), flat(lm))
+        ls = torch.from_numpy(local_slice(stats, ("tickers", None),
+                                          mesh).copy())
+        out["topk"] = xc.xs_population_topk_local(ls, k, n_pop)
+    out["dispatches"] = tel.registry.counter_total(
+        "mesh.collective_dispatches")
+    return _host(out)
+
+
+def job_factors(rank, bars, mask, shape, names=None):
+    """``shard_day_batch`` + ``sharded_compute_factors`` on a ``shape``
+    mesh: this rank's ``{name: [D/d, T/t]}`` block, the DayContext rank
+    of the block through the tickers axis, and the pad-waste gauge."""
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        DayContext)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh, shard_day_batch, sharded_compute_factors)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, set_telemetry)
+
+    tel = set_telemetry(Telemetry())
+    mesh = make_mesh(tuple(shape), "cpu")
+    b, m, n_tickers = shard_day_batch(bars, mask, mesh)
+    out = sharded_compute_factors(b, m, mesh, names=names)
+    with mesh:
+        grank = DayContext(b, m, xs_axis_name="tickers").eod_ret_global_rank
+    return {"coord": mesh.coordinate, "n_tickers": n_tickers,
+            "factors": _host(out), "grank": _host(grank),
+            "pad_waste": tel.meshplane.summary()["pad_waste_frac_by_axis"]}
+
+
+def job_multihost(rank, bars, mask):
+    """The multihost layer inside a group: the topology gauges' values,
+    the global mesh, and ``shard_from_host_local`` from this process's
+    tickers slice."""
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        multihost)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, set_telemetry)
+
+    tel = set_telemetry(Telemetry())
+    mesh = multihost.global_mesh(device="cpu")
+    t = bars.shape[1] // mesh.size
+    sl = slice(rank * t, (rank + 1) * t)
+    b, m = multihost.shard_from_host_local(bars[:, sl], mask[:, sl], mesh)
+    return {"index": multihost.process_index(),
+            "count": multihost.process_count(),
+            "shape": dict(mesh.shape), "coord": mesh.coordinate,
+            "bars": _host(b), "mask": _host(m),
+            "built": tel.registry.counter_total("multihost.shards_built")}
+
+
+def job_handoff(rank, shape):
+    """``xs_carry_handoff_local`` on a ``shape`` mesh: rank r offers a
+    span state whose newest day is ``r`` on some lanes; every rank of a
+    day axis must end with the fold over that axis."""
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        collectives as xc)
+    from replication_of_minute_frequency_factor_tpu_torch.stream.carry import (
+        combine_span_state)
+
+    mesh = make_mesh(tuple(shape), "cpu")
+    i = mesh.axis_index("days")
+    has = torch.tensor([True, i % 2 == 0, False, i == 0])
+    state = {"last_close": torch.tensor([1.0, 2.0, 3.0, 4.0]) * (i + 1),
+             "n_bars": torch.tensor([10, 20, 30, 40], dtype=torch.int32)
+             + i,
+             "has": has,
+             "day": torch.where(has, i, -1).to(torch.int32)}
+    with mesh:
+        out = xc.xs_carry_handoff_local(state, combine_span_state,
+                                        "days", mesh.shape["days"])
+    return {"coord": mesh.coordinate, "state": _host(out)}
+
+
+def job_meshplane(rank):
+    """``measure_ready_mesh`` on a ``(2, world/2)`` mesh: the flat and
+    per-axis watermarks published on every rank."""
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, set_telemetry)
+    import torch.distributed as dist
+
+    tel = set_telemetry(Telemetry())
+    mesh = make_mesh((2, dist.get_world_size() // 2), "cpu")
+    sample = tel.meshplane.measure_ready_mesh(torch.zeros(4), mesh,
+                                              boundary="test")
+    tel.meshplane.note_collective("probe")
+    return {"sample": sample, "summary": tel.meshplane.summary()}
+
+
+#: bench._ULP_FACTORS: the pair the JAX package holds at <= 16 f32 eps of
+#: the scale between sharded and single-device runs (its sqrt/sqrt
+#: division fuses by module shape); every other factor is held bitwise
+ULP_FACTORS = ("vol_upRatio", "vol_downRatio")
+
+
+def sharded_misses(names, got, want):
+    """The sharded-vs-single-device bar per factor over ``[..., F, ...]``
+    blocks (factor axis 1): bitwise, except :data:`ULP_FACTORS` (NaN
+    pattern identical, finite values within 16 eps of the block's
+    scale). Returns ``{name: largest gap}`` of the factors that miss."""
+    eps = float(np.finfo(np.float32).eps)
+    out = {}
+    for j, n in enumerate(names):
+        a, b = np.asarray(want[:, j]), np.asarray(got[:, j])
+        if n in ULP_FACTORS:
+            f = np.isfinite(a)
+            scale = np.abs(a[f]).max(initial=1.0) or 1.0
+            gap = float(np.abs(a[f] - b[f]).max(initial=0.0))
+            if (not np.array_equal(np.isnan(a), np.isnan(b))
+                    or not np.array_equal(np.isfinite(a), np.isfinite(b))
+                    or gap > 16 * eps * scale):
+                out[n] = gap
+        elif not np.array_equal(np.ascontiguousarray(a).view(np.int32),
+                                np.ascontiguousarray(b).view(np.int32)):
+            f = np.isfinite(a) & np.isfinite(b)
+            out[n] = float(np.abs(a[f] - b[f]).max(initial=0.0))
+    return out
+
+
+def _group_backends(mesh):
+    import torch.distributed as dist
+    return {ax: (None if mesh.group(ax) is None
+                 else str(dist.get_backend(mesh.group(ax))))
+            for ax in ("days", "tickers")}
+
+
+def job_year_1d(rank, path, spec, kind, names, n_logical, rspec=None,
+                device="cuda"):
+    """A resident year's ``[N, S, L]`` stack (a .npy file; each rank
+    reads its own shard) through ``compute_packed_resident_sharded`` on a
+    ``(1, world)`` mesh on the card: the raw run under
+    ``torch.cuda.set_sync_debug_mode('error')`` (the transport's staging
+    waits counted apart), its launches, walls and donated handles; then
+    the result wire and the stats on fresh copies."""
+    import time
+
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh, put_packed_year)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, set_telemetry)
+
+    tel = set_telemetry(Telemetry())
+    mesh = make_mesh(None, device)
+    stacked = np.load(path, mmap_mode="r")
+    bufs = put_packed_year(stacked, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rolling_cuda.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        ys = pipeline.compute_packed_resident_sharded(
+            bufs, spec, kind, mesh, names, rolling_impl="cuda")
+        t_enqueue = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = dict(rolling_cuda.launches)
+    waits = tel.registry.counter_total("mesh.staged_host_waits")
+    torch.cuda.synchronize()
+    t_done = time.perf_counter() - t0
+    host = ys.cpu().numpy()
+    dead = all(type(b).__name__ == "_DonatedTensor" for b in bufs)
+    try:
+        bufs[0].sum()
+        reuse = "no error"
+    except pipeline.DonatedBufferError as e:
+        reuse = str(e)
+    del ys, bufs
+    side = {}
+    if rspec is not None:
+        fresh = put_packed_year(stacked, mesh)
+        rolling_cuda.reset_launches()
+        payload, stats = pipeline.compute_packed_resident_sharded(
+            fresh, spec, kind, mesh, names, rolling_impl="cuda",
+            result_spec=rspec, factor_stats=n_logical)
+        side = {"payload": payload.cpu().numpy(),
+                "stats": stats.cpu().numpy(),
+                "launches": dict(rolling_cuda.launches)}
+    tel.meshplane.drain()
+    return {"coord": mesh.coordinate, "backends": _group_backends(mesh),
+            "ys": host, "launches": launches, "staged_waits": waits,
+            "enqueue_s": t_enqueue, "done_s": t_done, "dead": dead,
+            "reuse": reuse, "peak": torch.cuda.max_memory_allocated(),
+            "side": side, "mesh": tel.meshplane.summary()}
+
+
+def job_exposures_in_group(rank, minute_dir, names, cache_path,
+                           fail_rank=None):
+    """``compute_exposures(mesh_shape=(1, world))`` on every rank of the
+    group, as under torchrun; ``fail_rank``'s first step raises once
+    its collectives are done. Rank 0's table columns, failed days and
+    retries; None on the others."""
+    import torch.distributed as dist
+
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.config import (
+        Config)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry)
+
+    if rank == fail_rank:
+        real, calls = pipeline._packed_step, []
+
+        def flaky(*args, **kw):
+            out = real(*args, **kw)
+            calls.append(1)
+            if len(calls) == 1:
+                raise RuntimeError("injected fault on this rank")
+            return out
+
+        pipeline._packed_step = flaky
+    tel = Telemetry()
+    out = pipeline.compute_exposures(
+        minute_dir, names, cache_path=cache_path,
+        cfg=Config(days_per_batch=2, mesh_shape=(1, dist.get_world_size())),
+        progress=False, telemetry=tel, device="cpu")
+    if out is None:
+        return None
+    return {"columns": out.columns, "failures": sorted(out.failures.keys()),
+            "retries": tel.registry.counter_total("pipeline.retries")}
+
+
+def job_nccl_probe(rank):
+    """One all-reduce on the default group: does the transport take these
+    ranks (NCCL refuses two ranks on one card)?"""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    return {"backend": str(dist.get_backend()), "sum": x.cpu().tolist()}
+
+
+def job_nccl_year(rank, path, spec, kind, names, rspec=None,
+                  n_logical=None):
+    """A one-rank NCCL mesh whose tickers axis is the WORLD group (an
+    axis of one rank has no group of its own, and its collectives would
+    be the identity): the transport's collectives on the card's tensors
+    under ``set_sync_debug_mode('error')`` (no staging, no host wait),
+    and the sharded loop over the year's one shard, raw and with the
+    side outputs, its gathers and reductions all through NCCL."""
+    import torch.distributed as dist
+
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        make_mesh, put_packed_year, transport)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel.mesh import (
+        TICKERS_AXIS, Mesh)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry, set_telemetry)
+
+    world = dist.group.WORLD
+
+    class WorldTickersMesh(Mesh):
+        def group(self, axis):
+            return world if axis == TICKERS_AXIS else super().group(axis)
+
+    tel = set_telemetry(Telemetry())
+    mesh = make_mesh((1, 1), "cuda")
+    mesh.__class__ = WorldTickersMesh
+    x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4)
+    m = x > 3
+    # the communicator is made at the first collective: outside the check
+    transport.all_reduce(torch.zeros(1, device="cuda"), dist.ReduceOp.SUM,
+                         world)
+    torch.cuda.synchronize()
+    calls = {"all_gather": 0, "all_reduce": 0}
+    real = {k: getattr(transport, k) for k in calls}
+
+    def counted(name):
+        def run(*args, **kw):
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return run
+
+    year = np.load(path, mmap_mode="r")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = transport.all_gather(x, world)
+        gm = transport.all_gather(m, world)
+        r = transport.all_reduce(x, dist.ReduceOp.MIN, world)
+        for k in calls:
+            setattr(transport, k, counted(k))
+        ys = pipeline.compute_packed_resident_sharded(
+            put_packed_year(year, mesh), spec, kind, mesh, names,
+            rolling_impl="cuda")
+        loop = dict(calls)
+        side = None
+        if rspec is not None:
+            side = pipeline.compute_packed_resident_sharded(
+                put_packed_year(year, mesh), spec, kind, mesh, names,
+                rolling_impl="cuda", result_spec=rspec,
+                factor_stats=n_logical)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for k in calls:
+            setattr(transport, k, real[k])
+    out = {"backend": str(dist.get_backend(world)),
+           "gather_ok": bool(torch.equal(g, x) and torch.equal(gm, m)
+                             and torch.equal(r, x)),
+           "staged_waits": tel.registry.counter_total(
+               "mesh.staged_host_waits"),
+           "loop_collectives": loop, "collectives": dict(calls),
+           "ys": ys.cpu().numpy()}
+    if side is not None:
+        out["payload"], out["stats"] = (t.cpu().numpy() for t in side)
+    return out
