@@ -119,8 +119,8 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    tiled kernel at the block's ``[40000, 240]`` against its plain version.
 12. factor discovery at full width: ``DiscoveryEngine`` on
    ``synth_batch(512, 16)`` (16 days x 512 tickers on ``cn_ashare_240``,
-   horizon-1 forward returns, the default skeleton) at populations 512 and
-   2048 for 6 generations and 8192 for 3, each warmed first: candidates/s,
+   horizon-1 forward returns, the default skeleton) at populations 512 for
+   6 generations, 2048 for 4 and 8192 for 2, each warmed first: candidates/s,
    generation walls p50/p99, one host sync a generation, nothing built in
    the loop, no second-moment launch, peak memory; one pop-512 generation
    under ``torch.profiler`` and through a dispatch counter (device ops and
@@ -197,13 +197,43 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    Timed: each rank's enqueue and completion, peak memory per rank and
    summed, and the tiled kernel at a rank's ``[40000, 240]`` step in
    turns with its plain version.
+15. the fleet. 15a: ``FactorFleet`` of 2 replicas over phase 11's source
+   (5000 tickers, all 58 factors, ``rolling_impl='cuda'``, ``stream=True``)
+   with ``devices=[cuda:0, cuda:0]`` passed explicitly: the two replicas
+   share the one card, so their times are not multi-card scaling, and
+   both HBM samples read the same card (``cache_bytes`` is sized so that
+   the card's whole allocation stays under the demotion line, and no
+   replica may be demoted for HBM). With the launch counts set to 0 just
+   before and read after each step: 16 queries on ``[0, 8)`` submitted
+   before ``start()`` (one dispatch, on the owner ``route_order`` names,
+   one tiled launch; every answer bitwise phase 11's standalone answer on
+   all 58, the wire payload byte-identical), two distinct ranges on their
+   rendezvous owners (one launch each), the degrade ladder on a fresh
+   range with an injected raiser (demoted, answered through the other
+   replica with one launch, restored after the cooldowns with one launch,
+   the two answers bitwise), a cold block build on each replica (one
+   launch each), and an ingest fan-out with one leg broken (failed, then
+   skipped) followed by an intraday query (one launch), its answer bitwise
+   phase 11's (a standalone ``StreamEngine`` snapshot); no kernel library
+   built in the loop, the rolling impl resolved ``cuda`` on every replica.
+   Then the pod counters equal to the sums over the replicas, ``/healthz``
+   and ``/v1/metrics?format=prometheus`` through the edge and the legacy
+   doors naming ``cuda:0`` for each replica with JSON answers bitwise in
+   process and wire bodies byte-identical, and the replicas' bundles
+   aggregated with every counter exact. Timed: a cache-hit request routed
+   against the same request sent straight to the owning server (the
+   router hop), in turns; each replica's cold block build; the tiled
+   kernel at a replica block's ``[40000, 240]`` in turns with its plain
+   version. 15b: the CLI's ``serve --fleet 1 --demo 12`` in process on the
+   default device list (every visible card): one live replica, 12 routed,
+   the rolling impl resolved ``cuda``.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel and path (the tiled kernel on the host driver's batches, on the
 streaming snapshots, on the server's block builds, on the resident
-year's batches and on a rank's step of the sharded year, the rowwise
-kernel on the window-20 path); the last is ``{"ok": true, "device":
-{...}}``.
+year's batches, on a rank's step of the sharded year and on the fleet
+replicas' block builds, the rowwise kernel on the window-20 path); the
+last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1949,15 +1979,17 @@ def fwd_returns_ref(close, valid, horizon: int):
     return fwd / close - 1.0, ok & valid
 
 
-def serve_path(tables, card: str) -> dict:
+def serve_path(tables, card: str):
     """Phase 11: the factor server at full width on the card; see the
     module docstring. Returns the kernels line's entry for the block
-    build's tiled kernel."""
+    build's tiled kernel, and the standalone answers phase 15 holds the
+    fleet to: the whole block ``[0, 8)``, its wire payload and the
+    intraday snapshot after the two ingests."""
     import threading
     import urllib.request
 
     from replication_of_minute_frequency_factor_tpu_torch import (
-        StreamEngine, compute_batch, eval_ops)
+        StreamEngine, compute_batch, eval_ops, kernels)
     from replication_of_minute_frequency_factor_tpu_torch.data import (
         result_wire as rw)
     from replication_of_minute_frequency_factor_tpu_torch.data import wire
@@ -2010,6 +2042,7 @@ def serve_path(tables, card: str) -> dict:
         # --- the main path: counts to 0 just before, read just after ---
         rolling_cuda.reset_launches()
         rolling.IMPL_COUNTS.clear()
+        lib_builds0 = kernels.build_count()
         steps = {}
 
         def step(label):
@@ -2097,6 +2130,10 @@ def serve_path(tables, card: str) -> dict:
         if new_built != 0:
             fail(f"phase 11: a new range of the same extent built "
                  f"{new_built} callables")
+        lib_builds = kernels.build_count() - lib_builds0
+        if lib_builds != 0:
+            fail(f"phase 11: {lib_builds} kernel-library builds or loads "
+                 "in the request loop (the engine loads it at construction)")
         if errors or len(answers) != SERVE_COALESCE:
             fail(f"phase 11 coalescing: {errors[:3]}")
         if coalesced != (1, SERVE_COALESCE):
@@ -2114,7 +2151,8 @@ def serve_path(tables, card: str) -> dict:
             f"wall for all (the 0.25 s collection window included); the "
             f"first block of another new range [{d1 // 2}, "
             f"{d1 // 2 + SERVE_BLOCK}), callables warm, alone: "
-            f"{warm_new_ms:.2f} ms wall, nothing built ({card})")
+            f"{warm_new_ms:.2f} ms wall, nothing built; no kernel-library "
+            f"build or load in the loop ({card})")
 
         # 1. the block against compute_batch on its decoded bars
         bars, mask = src.slab(d0, d1)
@@ -2365,7 +2403,446 @@ def serve_path(tables, card: str) -> dict:
     return {"launches": serve_launches,
             "max_abs_err": err, "ms": float(np.median(kernel_ms)),
             "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
+            "bound_by": by}, {"full": full,
+                              "wire": wire_ans["payload"].tobytes(),
+                              "intraday": intraday}
+
+
+#: phase 15: the fleet's replicas (sharing the one card), the queries
+#: coalesced before the start, the router-hop timing rounds, and each
+#: replica's exposure-cache budget: large enough that the card's whole
+#: allocation (both replicas' blocks and carries plus every earlier
+#: phase's tensors, all read as one card's bytes) stays under the HBM
+#: demotion line, cache_bytes x 1.5
+FLEET_REPLICAS, FLEET_COALESCE, FLEET_HOP_ROUNDS = 2, 16, 4
+FLEET_CACHE_BYTES = 16 << 30
+
+
+def fleet_path(standalone: dict, card: str) -> dict:
+    """Phase 15: the fleet on the card; see the module docstring. Returns
+    the kernels line's entry for the replicas' block builds."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from replication_of_minute_frequency_factor_tpu_torch import kernels
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.data import wire
+    from replication_of_minute_frequency_factor_tpu_torch.fleet import (
+        FactorFleet, serve_fleet_frontdoor)
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        Query, ServeConfig, SyntheticSource, WireClient)
+    from replication_of_minute_frequency_factor_tpu_torch.serve.http import (
+        WIRE_CONTENT_TYPE)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        aggregate)
+
+    names = factor_names()
+    d0, d1, d2 = 0, SERVE_BLOCK, 2 * SERVE_BLOCK
+    src = SyntheticSource(n_days=SERVE_DAYS, n_tickers=TICKERS, seed=0)
+    card0 = torch.device("cuda", 0)
+    scfg = ServeConfig(slo_latency_ms=60_000.0, breaker_threshold=1,
+                       breaker_cooldown_s=0.4,
+                       cache_bytes=FLEET_CACHE_BYTES)
+    t0 = time.perf_counter()
+    fleet = FactorFleet(src, FLEET_REPLICAS, names=names, serve_cfg=scfg,
+                        rolling_impl="cuda", stream=True,
+                        stream_batches=(SERVE_MICRO,), start=False,
+                        devices=[card0] * FLEET_REPLICAS)
+    fleet.policy.cooldown_s = 0.2
+    log(f"phase 15 fleet up in {time.perf_counter() - t0:.2f} s: "
+        f"{FLEET_REPLICAS} replicas over phase 11's source, all "
+        f"{len(names)} factors, rolling_impl=cuda, stream=True, devices="
+        f"{[[str(d) for d in r.devices] for r in fleet.replicas]}. The "
+        "replicas share ONE card: their times are not multi-card scaling, "
+        "and both HBM samples read the same card")
+    for r in fleet.replicas:
+        if r.server.engine.rolling_impl != "cuda" or \
+                r.server.stream_engine.rolling_impl != "cuda":
+            fail(f"phase 15 {r.label}: rolling_impl "
+                 f"{r.server.engine.rolling_impl} requested, not cuda")
+    reg = fleet.telemetry.registry
+    doors = []
+    try:
+        def dispatches():
+            return {r.label: r.telemetry.registry.counter_total(
+                "serve.dispatches") for r in fleet.replicas}
+
+        def owner_of(key):
+            return fleet.router.route_order(key)[0]
+
+        # --- the main path: counts to 0 just before, read just after ---
+        rolling_cuda.reset_launches()
+        rolling.IMPL_COUNTS.clear()
+        built0 = kernels.build_count()
+        steps = {}
+
+        def step(label):
+            steps[label] = dict(rolling_cuda.launches)
+
+        futs = [fleet.submit(Query("factors", d0, d1))
+                for _ in range(FLEET_COALESCE)]
+        t = time.perf_counter()
+        fleet.start()
+        answers = [f.result(600) for f in futs]
+        coalesce_ms = (time.perf_counter() - t) * 1e3
+        step("coalesce")
+        disp = dispatches()
+        owner = owner_of((d0, d1))
+        wire_ans = fleet.submit(Query("factors", d0, d1,
+                                      encoding="wire")).result(600)
+        step("wire")
+        spread_keys = [(d1, d2), (d1 // 2, d1 // 2 + SERVE_BLOCK)]
+        for k in spread_keys:
+            fleet.submit(Query("factors", *k, names=("mmt_am",))
+                         ).result(600)
+        step("distinct ranges")
+        # the degrade ladder on a fresh range: its owner raises, the
+        # pod answers through the other replica, then restores it
+        lkey = (2, 2 + SERVE_BLOCK)
+        lowner = owner_of(lkey)
+        lother = next(r for r in fleet.replicas if r is not lowner)
+
+        def boom(*a, **k):
+            raise RuntimeError("injected replica failure")
+
+        lowner.server.engine.build_block = boom
+        try:
+            fleet.submit(Query("factors", *lkey)).result(600)
+            fail("phase 15: the injected raiser did not raise")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        through_other = fleet.submit(Query("factors", *lkey)).result(600)
+        health_down = fleet.health()
+        step("degraded")
+        del lowner.server.engine.build_block
+        time.sleep(0.6)
+        restored = fleet.submit(Query("factors", *lkey)).result(600)
+        health_up = fleet.health()
+        step("restored")
+        # each replica's cold block build: a new range on each, asked of
+        # the replica's own server (callables warm, one factor answered)
+        cold = {}
+        for i, r in enumerate(fleet.replicas):
+            k = (6 + i, 6 + i + SERVE_BLOCK)
+            t = time.perf_counter()
+            r.server.submit(Query("factors", *k, names=("mmt_am",))
+                            ).result(600)
+            cold[r.label] = (time.perf_counter() - t) * 1e3
+        step("cold builds")
+        # ingest fan-out with one broken leg, then intraday
+        fleet.policy.cooldown_s = 30.0
+        for r in fleet.replicas:
+            r.server.scfg.breaker_cooldown_s = 30.0
+        broken, healthy = fleet.replicas
+        broken.server.stream_engine.ingest_minutes = boom
+        day_bars, day_mask = src.slab(0, 1)
+        micro = [cases.minutes_of(day_bars[0], day_mask[0], lo,
+                                  lo + SERVE_MICRO)
+                 for lo in range(0, SERVE_MINUTES, SERVE_MICRO)]
+        legs = [fleet.ingest(b, p_, timeout=600) for b, p_ in micro]
+        intraday = fleet.submit(Query("intraday")).result(600)
+        step("intraday")
+        impl_counts = dict(rolling.IMPL_COUNTS)
+        built = kernels.build_count() - built0
+        # --- end of the main path ---
+
+        launches = {}
+        prev = {"tiled": 0, "rowwise": 0}
+        for label, now in steps.items():
+            launches[label] = {k: now[k] - prev[k] for k in now}
+            prev = now
+        log(f"phase 15 launches by step: {launches}; rolling impl "
+            f"{impl_counts}; kernel-library builds in the loop {built}")
+        want = {"coalesce": 1, "wire": 0, "distinct ranges": 2,
+                "degraded": 1, "restored": 1,
+                "cold builds": FLEET_REPLICAS, "intraday": 1}
+        for label, n in want.items():
+            if launches[label] != {"tiled": n, "rowwise": 0}:
+                fail(f"phase 15 {label}: launched {launches[label]}, "
+                     f"expected the tiled kernel {n} time(s)")
+        if set(impl_counts) != {("cuda", "cuda")}:
+            fail(f"phase 15: a replica resolved rolling impl {impl_counts}")
+        if built != 0:
+            fail(f"phase 15: {built} kernel-library builds in the loop")
+        if disp != {owner.label: 1, **{r.label: 0 for r in fleet.replicas
+                                       if r is not owner}}:
+            fail(f"phase 15: {FLEET_COALESCE} same-range queries gave "
+                 f"dispatches {disp}; expected one, on {owner.label}")
+        if reg.counter_value("fleet.affinity", outcome="hit") \
+                < FLEET_COALESCE - 1:
+            fail("phase 15: the affinity memo missed repeat keys")
+        full = standalone["full"]
+        for a in answers:
+            for n in names:
+                if not same_values(a["exposures"][n], full["exposures"][n]):
+                    fail(f"phase 15: routed {n} differs from phase 11's "
+                         "standalone answer")
+        if wire_ans["payload"].tobytes() != standalone["wire"]:
+            fail("phase 15: the routed wire payload is not phase 11's")
+        log(f"phase 15: {FLEET_COALESCE} queries on [{d0}, {d1}) submitted "
+            f"before start: 1 dispatch on {owner.label} (the rendezvous "
+            f"owner), 1 tiled launch, {coalesce_ms:.2f} ms wall for all; "
+            f"every answer bitwise phase 11's standalone answer on all "
+            f"{len(names)}, the wire payload byte-identical ({card})")
+        routes = {tuple(rec["data"]["key"]): rec["data"]["replica"]
+                  for rec in fleet.telemetry._requests
+                  if rec["op"] == "route"}
+        for k in spread_keys:
+            if routes.get(k) != owner_of(k).label:
+                fail(f"phase 15: range {k} went to {routes.get(k)}, its "
+                     f"rendezvous owner is {owner_of(k).label}")
+        log(f"phase 15 distinct ranges {spread_keys} went to their "
+            f"rendezvous owners {[owner_of(k).label for k in spread_keys]}")
+        if health_down["pod"]["demoted"] != [lowner.label] or \
+                health_down["pod"]["reasons"][lowner.label] != "breaker":
+            fail(f"phase 15 ladder: {health_down['pod']} after the "
+                 f"injected failure on {lowner.label}")
+        if health_up["pod"]["live"] != FLEET_REPLICAS or reg.counter_value(
+                "fleet.restores", replica=lowner.label) != 1:
+            fail(f"phase 15 ladder: {lowner.label} not restored "
+                 f"({health_up['pod']})")
+        for n in names:
+            if not same_values(through_other["exposures"][n],
+                               restored["exposures"][n]):
+                fail(f"phase 15 ladder: {n} through {lother.label} differs "
+                     f"from the restored {lowner.label}'s")
+        log(f"phase 15 ladder on {lkey}: {lowner.label} raised and was "
+            f"demoted (breaker), {lother.label} answered, {lowner.label} "
+            "restored after the cooldowns and rebuilt the range bitwise the "
+            "answer through the other replica")
+        if [leg["failed"] for leg in legs] != [[broken.label]] * 2 or \
+                not legs[1]["replicas"][broken.label].get("skipped"):
+            fail(f"phase 15 ingest legs: {legs}")
+        if intraday["minute"] != SERVE_MINUTES:
+            fail(f"phase 15 intraday at minute {intraday['minute']}")
+        want_i = standalone["intraday"]
+        for n in names:
+            if not (same_values(intraday["exposures"][n],
+                                want_i["exposures"][n])
+                    and intraday["ready"][n] == want_i["ready"][n]):
+                fail(f"phase 15 intraday {n} differs from phase 11's "
+                     "(a standalone StreamEngine snapshot's bits)")
+        log(f"phase 15 ingest fan-out with {broken.label}'s leg broken: "
+            f"failed {[leg['failed'] for leg in legs]}, then skipped; "
+            f"{healthy.label}'s intraday answer at minute {SERVE_MINUTES} "
+            "bitwise the standalone StreamEngine snapshot of phase 11")
+
+        # pod counters: the registry-merge fold equals the sums
+        merged = fleet.pod_registry()
+        regs = [reg] + [r.telemetry.registry for r in fleet.replicas]
+        for key, total in merged.snapshot()["counters"].items():
+            per = sum(r_.snapshot()["counters"].get(key, 0.0)
+                      for r_ in regs)
+            if abs(per - total) > 1e-9 * max(1.0, abs(total)):
+                fail(f"phase 15 pod counter {key}: {total} != {per}")
+        log(f"phase 15 pod counters: every counter the sum over the control "
+            f"plane and the replicas; fleet.routed "
+            f"{merged.counter_total('fleet.routed'):.0f}, serve.dispatches "
+            f"{merged.counter_total('serve.dispatches'):.0f}")
+
+        # the doors: health, metrics and answers over 127.0.0.1
+        sub = ["mmt_am", "mmt_ols_qrs", "liq_openvol"]
+        in_proc = fleet.submit(Query("factors", d0, d1,
+                                     names=tuple(sub))).result(600)
+        bodies = {}
+        for label in ("edge", "legacy"):
+            door = serve_fleet_frontdoor(fleet, port=0, transport=label)
+            doors.append(door)
+            port = door.server_address[1]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=60) as resp:
+                h = json.loads(resp.read())
+            for rl, rep in h["replicas"].items():
+                if not rep["replica"]["devices"][0].startswith("cuda:0 "):
+                    fail(f"phase 15 {label} /healthz {rl}: devices "
+                         f"{rep['replica']['devices']}")
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/v1/metrics?format=prometheus",
+                    timeout=60) as resp:
+                text = resp.read().decode()
+            if "fleet_routed_total" not in text or \
+                    "serve_dispatches_total" not in text:
+                fail(f"phase 15 {label}: the Prometheus scrape lacks the "
+                     "pod counters")
+            cli = WireClient("127.0.0.1", port, timeout=600)
+            try:
+                st, doc = cli.query_json({"kind": "factors", "start": d0,
+                                          "end": d1, "names": sub})
+                if st != 200 or any(not same_values(
+                        doc["exposures"][n], in_proc["exposures"][n])
+                        for n in sub):
+                    fail(f"phase 15 {label}: JSON factors differ from the "
+                         "in-process answer")
+                st, _hdrs, body = cli.post_json(
+                    "/v1/query", {"kind": "factors", "start": d0,
+                                  "end": d1},
+                    headers={"Accept": WIRE_CONTENT_TYPE})
+                if st != 200:
+                    fail(f"phase 15 {label}: wire query answered {st}")
+                _meta, framed, _ = rw.unpack_frame(body)
+                if np.asarray(framed).tobytes() != standalone["wire"]:
+                    fail(f"phase 15 {label}: the wire frame's payload is "
+                         "not phase 11's")
+                bodies[label] = body
+            finally:
+                cli.close()
+        if bodies["edge"] != bodies["legacy"]:
+            fail("phase 15: edge and legacy wire bodies differ")
+        log(f"phase 15 doors (edge, legacy): /healthz names "
+            f"{h['replicas'][owner.label]['replica']['devices']} for each "
+            "replica; the Prometheus scrape carries the pod counters; JSON "
+            "answers bitwise in process, wire bodies byte-identical")
+
+        # the bundles aggregate
+        with tempfile.TemporaryDirectory(prefix="fleet_bundles_") as tmp:
+            dirs = []
+            for r in fleet.replicas:
+                d = os.path.join(tmp, r.label)
+                r.write_bundle(d)
+                dirs.append(d)
+            agg = aggregate.aggregate_dirs(dirs, os.path.join(tmp, "pod"))
+            if not agg["ok"] or agg["counter_totals"]["mismatched"]:
+                fail(f"phase 15: the replicas' bundles do not aggregate "
+                     f"({agg.get('counter_totals')})")
+        log(f"phase 15 bundles: {len(dirs)} replica bundles stamped and "
+            "aggregated, every counter total exact")
+
+        # no replica was demoted for HBM: both read the one card
+        hbm = {}
+        for r in fleet.replicas:
+            r.telemetry.hbm.sample("phase15", force=True)
+            hbm[r.label] = r.hbm_bytes()
+            if reg.counter_value("fleet.demotions", replica=r.label,
+                                 reason="hbm"):
+                fail(f"phase 15: {r.label} was demoted for HBM")
+            if not hbm[r.label][1]:
+                fail(f"phase 15: {r.label}'s HBM reading is unavailable")
+        log(f"phase 15 HBM: each replica reads the whole card's bytes in use "
+            f"({ {k: int(v[0]) for k, v in hbm.items()} }), under the "
+            f"demotion line {FLEET_CACHE_BYTES * 1.5 / 2**30:.1f} GiB; no "
+            "HBM demotion")
+
+        # timed: the router hop, each replica's cold build, the kernel
+        q = Query("factors", d0, d1, names=("mmt_am",))
+        hop = {"routed": [], "direct": []}
+        for _ in range(FLEET_HOP_ROUNDS):
+            for label, fn in (("routed", fleet.submit),
+                              ("direct", owner.server.submit),
+                              ("direct", owner.server.submit),
+                              ("routed", fleet.submit)):
+                for _ in range(SERVE_ROUNDS // 4):
+                    t = time.perf_counter()
+                    fn(q).result(600)
+                    hop[label].append((time.perf_counter() - t) * 1e3)
+        log(f"phase 15 request wall ms, a cache-hit factor on [{d0}, {d1}) "
+            f"({card}): " + "; ".join(
+                f"{k} p50 {np.percentile(v, 50):.3f} p99 "
+                f"{np.percentile(v, 99):.3f} (n={len(v)})"
+                for k, v in hop.items()) + "; the router hop costs "
+            f"{np.percentile(hop['routed'], 50) - np.percentile(hop['direct'], 50):.3f}"
+            " ms at p50")
+        log(f"phase 15 cold block build (a new range, one factor's answer) "
+            f"by replica, ms wall: { {k: round(v, 3) for k, v in cold.items()} }"
+            f" ({card})")
+
+        # the kernel at the block's shape, on the block's decoded bars
+        bars, mask = src.slab(d0, d1)
+        w = wire.encode(bars, mask, floor={})
+        buf, spec = wire.pack_arrays(w.arrays)
+        dbars, dmask = wire.decode(*wire.unpack(
+            torch.from_numpy(buf).to(card0), spec))
+        low = dbars[..., 2].reshape(-1, 240).contiguous()
+        high = dbars[..., 1].reshape(-1, 240).contiguous()
+        pm = dmask.reshape(-1, 240)
+        args = rolling.second_moment_inputs(low, high, pm, WINDOW)
+        vmask = rolling._windowed_sum(pm, WINDOW) > WINDOW - 0.5
+        got = rolling_cuda.second_moments(*args, WINDOW)
+        err = hold_to_plain("phase 15 second_moments", got,
+                            rolling_cuda.second_moments_plain(*args, WINDOW),
+                            vmask, 1e-5, 1e-9, constant_row=False)
+        kernel_ms, plain_ms = [], []
+        for dest, fn, clock in (
+                (kernel_ms, rolling_cuda.second_moments, batched_times_ms),
+                (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+                (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+                (kernel_ms, rolling_cuda.second_moments, batched_times_ms)):
+            dest += clock(lambda: fn(*args, WINDOW))
+        rows = low.shape[0]
+        bound, by, _, _ = moment_bound(rows, 240)
+        fleet_launches = sum(launches[k]["tiled"] for k in (
+            "coalesce", "distinct ranges", "degraded", "restored",
+            "cold builds"))
+        log(f"phase 15 second_moments [{rows}, 240] on a replica block's "
+            f"decoded bars: max_abs_err={err:.3e} vs plain; tiled "
+            f"{spread(kernel_ms)} ({bound / np.median(kernel_ms):.0%} of the "
+            f"{bound:.4f} ms bound by {by}); plain {spread(plain_ms)}; "
+            f"{fleet_launches} launches for the main path's "
+            f"{fleet_launches} replica block builds ({card})")
+    finally:
+        for door in doors:
+            door.shutdown()
+        fleet.close()
+    return {"launches": fleet_launches, "max_abs_err": err,
+            "ms": float(np.median(kernel_ms)),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
             "bound_by": by}
+
+
+def fleet_cli(card: str) -> None:
+    """Phase 15b: the CLI's ``serve --fleet 1 --demo 12`` in this process
+    on the default device list (every visible card). A replica's HBM
+    signal reads the whole card's allocation, at any moment a sample
+    lands (mid-build included), against ``--cache-mb`` x 1.5; this
+    process holds earlier phases' tensors too, so the budget is sized to
+    keep the card's allocation under the demotion line, as 15a sizes
+    its own, and the peak of the run is logged beside the CLI default's
+    line."""
+    import gc
+
+    from replication_of_minute_frequency_factor_tpu_torch.fleet import (
+        FleetShedError)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import rolling
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        get_telemetry)
+
+    gc.collect()  # phase 15a's fleet is a reference cycle
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rolling.IMPL_COUNTS.clear()
+    argv = ["serve", "--fleet", "1", "--demo", "12", "--cache-mb",
+            str(FLEET_CLI_CACHE_MB)]
+    try:
+        rc, out, secs = run_cli(argv)
+    except FleetShedError as e:
+        demotes = [ev for ev in get_telemetry().events()
+                   if ev.get("name") == "fleet.demote"]
+        fail(f"phase 15b: {' '.join(argv)} shed ({e}); demotions "
+             f"{demotes}; {held} B allocated before, peak "
+             f"{torch.cuda.max_memory_allocated()} B")
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or out is None or out["live_replicas"] != 1 \
+            or out["routed"] != 12:
+        fail(f"phase 15b: {' '.join(argv)} gave rc {rc}: {out}")
+    if set(rolling.IMPL_COUNTS) != {("cuda", "cuda")}:
+        fail(f"phase 15b: rolling impl {dict(rolling.IMPL_COUNTS)}")
+    log(f"phase 15b: {' '.join(argv)} on every visible card "
+        f"({torch.cuda.device_count()}): {out} in {secs:.2f} s; "
+        f"{held} B allocated before, peak {peak} B during the run, "
+        f"against the CLI default's demotion line {int(256 * 2**20 * 1.5)}"
+        f" B ({card})")
+
+
+#: phase 15b's exposure-cache budget (MB): its demotion line, 1.5 x this,
+#: sits above the whole card's allocation in this process
+FLEET_CLI_CACHE_MB = 4096
 
 
 #: phase 12: the discovery slab (tickers x days on cn_ashare_240, the JAX
@@ -2373,7 +2850,7 @@ def serve_path(tables, card: str) -> dict:
 #: the generations each runs; the fixed population held card against CPU;
 #: the server's discovery job (days [0, 8) of phase 11's source)
 DISC_TICKERS, DISC_DAYS, DISC_SEED = 512, 16, 2024
-DISC_LEVELS = ((512, 6), (2048, 6), (8192, 3))
+DISC_LEVELS = ((512, 6), (2048, 4), (8192, 2))
 DISC_HOLD_POP = 512
 DISC_JOB = {"generations": 4, "pop": 128, "seed": 7}
 #: the interpreter tolerance the CPU tests state (tests/test_torch_search.py,
@@ -2550,8 +3027,8 @@ def discovery_path(card: str) -> None:
             fail(f"phase 12 pop {pop}: {res.syncs_per_generation} host "
                  "syncs a generation, expected 1.0")
         if res.compiles_during_loop != 0:
-            fail(f"phase 12 pop {pop}: {res.compiles_during_loop} callables "
-                 "built during the generation loop")
+            fail(f"phase 12 pop {pop}: {res.compiles_during_loop} kernel-"
+                 "library builds or loads during the generation loop")
         if not (np.isfinite(res.fitness) and res.fitness > 0):
             fail(f"phase 12 pop {pop}: best fitness {res.fitness}")
         if dict(rolling_cuda.launches) != {"tiled": 0, "rowwise": 0}:
@@ -3612,7 +4089,7 @@ def main() -> None:
     del bars, mask
 
     # 11. the factor server at full width
-    serve_line = serve_path(tables, card)
+    serve_line, standalone = serve_path(tables, card)
 
     # 12. factor discovery at full width
     discovery_path(card)
@@ -3627,6 +4104,13 @@ def main() -> None:
     log(f"phase 14a/b/d wall (ranks' start-up included): "
         f"{time.perf_counter() - t0:.1f} s")
     del year_ctx
+
+    # 15. the fleet: two replicas sharing the card, and the CLI's fleet
+    t0 = time.perf_counter()
+    fleet_line = fleet_path(standalone, card)
+    del standalone
+    fleet_cli(card)
+    log(f"phase 15 wall: {time.perf_counter() - t0:.1f} s")
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"
@@ -3653,7 +4137,9 @@ def main() -> None:
     } for name, entry in (("second_moments_stream_snapshot", stream_line),
                           ("second_moments_serve_block", serve_line),
                           ("second_moments_resident_year", year_line),
-                          ("second_moments_sharded_year", sharded_line))]}),
+                          ("second_moments_sharded_year", sharded_line),
+                          ("second_moments_fleet_replica_block_build",
+                           fleet_line))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -55,8 +55,16 @@ rank 0 prints):
         --minute-dir data/kline --cache data/factors.parquet \
         --mesh-tickers 2
 
-Still waiting for the slices that port what they drive: the ``analyze``
-subcommand and ``serve --fleet`` (ROADMAP Queue 1 item 7; N > 0 exits 2).
+``serve --fleet N`` runs N replicas as one pod behind one front door
+(``fleet/``): every visible card split into N groups, or, with
+``--device D``, N replicas sharing ``D`` (``--device cpu`` runs them on
+the CPU). ``--demo K`` routes K queries and prints the pod summary:
+
+    python -m replication_of_minute_frequency_factor_tpu_torch serve \
+        --fleet 2 --demo 12
+
+Still waiting for the slice that ports what it drives: the ``analyze``
+subcommand (ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -196,8 +204,10 @@ def _add_serve(sub: "argparse._SubParsersAction") -> None:
                    help="persist discovered-genome records as "
                         "<name>.json under DIR (reloaded at startup)")
     p.add_argument("--fleet", type=int, default=0, metavar="N",
-                   help="run N replicas over disjoint cards: not ported "
-                        "yet (N > 0 exits 2); 0 = a single server")
+                   help="run N replicas as one pod behind one front "
+                        "door: the visible cards split into N groups "
+                        "(with --device, N replicas on that device); "
+                        "0 = a single server")
     p.add_argument("--demo", type=int, default=None, metavar="N",
                    help="answer N in-process queries (factors/IC/decile "
                         "cycle), print a JSON summary, exit — no HTTP")
@@ -223,10 +233,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
                         SyntheticSource, serve_frontdoor)
     from .telemetry import Telemetry, set_telemetry
 
-    if args.fleet > 0:
-        print("serve --fleet is not ported yet (ROADMAP Queue 1 item 7)",
-              file=sys.stderr)
-        return 2
     all_names = factor_names()
     names = (all_names if args.factors == "all"
              else tuple(s.strip() for s in args.factors.split(",")
@@ -258,25 +264,19 @@ def cmd_serve(args: argparse.Namespace) -> int:
     stream_batches = tuple(int(s) for s in
                            str(args.stream_batches).split(",")
                            if s.strip())
+    if args.fleet > 0:
+        return _cmd_serve_fleet(args, source, names, scfg,
+                                stream_batches or (1,), tel, _write_bundle)
+    from . import kernels
+    builds0 = kernels.build_count()
     with FactorServer(source, names=names, serve_cfg=scfg,
                       telemetry=tel, stream=args.stream,
                       stream_batches=stream_batches or (1,),
                       research=args.research,
                       device=args.device) as server:
         if args.demo is not None:
-            client = server.client()
-            w = max(2, min(8, source.n_days))
-            n_ranges = max(1, source.n_days // w)
-            for i in range(args.demo):
-                start = (i % n_ranges) * w
-                kind = ("factors", "ic", "decile")[i % 3]
-                if kind == "factors":
-                    client.factors(start, start + w,
-                                   names=(names[i % len(names)],))
-                elif kind == "ic":
-                    client.ic(names[i % len(names)], start, start + w)
-                else:
-                    client.decile(names[i % len(names)], start, start + w)
+            for q in _demo_queries(args.demo, source, names):
+                server.submit(q).result(60)
             reg = tel.registry
             lat = reg.histogram_stats("serve.request_seconds",
                                       kind="ic") or {}
@@ -289,10 +289,9 @@ def cmd_serve(args: argparse.Namespace) -> int:
                 "dispatches": int(reg.counter_total("serve.dispatches")),
                 "cache_hits": int(reg.counter_value("serve.cache",
                                                     outcome="hit")),
-                # the callables built (the JAX package counts XLA
-                # compiles here)
-                "compiles": int(reg.counter_value("serve.executables",
-                                                  outcome="miss")),
+                # the kernel-library builds and loads the server made
+                # (the JAX package counts XLA compiles here)
+                "compiles": kernels.build_count() - builds0,
                 "ic_p50_s": lat.get("p50"),
             }))
             return 0
@@ -313,6 +312,94 @@ def cmd_serve(args: argparse.Namespace) -> int:
         finally:
             door.shutdown()
             _write_bundle()
+    return 0
+
+
+def _demo_queries(n: int, source, names):
+    """``serve --demo N``'s queries: factors, IC and decile in turn, each
+    over one of the source's day-ranges of up to 8 days and one factor."""
+    from .serve import Query
+
+    w = max(2, min(8, source.n_days))
+    n_ranges = max(1, source.n_days // w)
+    out = []
+    for i in range(n):
+        start = (i % n_ranges) * w
+        name = names[i % len(names)]
+        kind = ("factors", "ic", "decile")[i % 3]
+        out.append(Query(kind, start, start + w, names=(name,))
+                   if kind == "factors"
+                   else Query(kind, start, start + w, factor=name))
+    return out
+
+
+def _cmd_serve_fleet(args, source, names, scfg, stream_batches, tel,
+                     write_bundle) -> int:
+    """``serve --fleet N``: one pod front door over N replicas. The
+    replicas split every visible card (``partition_devices``), or, with
+    ``--device D``, all run on ``D``. ``--demo K`` answers K queries
+    through the ROUTER and prints the pod summary (per-replica dispatch
+    spread included); otherwise the fleet's front door serves until
+    interrupted."""
+    import os
+    import time
+
+    import torch
+
+    from . import kernels
+    from .fleet import FactorFleet, serve_fleet_frontdoor
+
+    devices = (None if args.device is None
+               else [torch.device(args.device)] * args.fleet)
+    builds0 = kernels.build_count()
+    with FactorFleet(source, args.fleet, names=names, serve_cfg=scfg,
+                     stream=args.stream, stream_batches=stream_batches,
+                     telemetry=tel, devices=devices) as fleet:
+        if args.demo is not None:
+            for q in _demo_queries(args.demo, source, names):
+                fleet.submit(q).result(120)
+            reg = fleet.pod_registry()
+            health = fleet.health()
+            write_bundle()
+            print(json.dumps({
+                "demo_requests": args.demo,
+                "fleet": args.fleet,
+                "live_replicas": health["pod"]["live"],
+                "factors": len(names),
+                "days": source.n_days,
+                "tickers": source.n_tickers,
+                "dispatches": int(reg.counter_total("serve.dispatches")),
+                "routed": int(reg.counter_total("fleet.routed")),
+                "cache_hits": int(reg.counter_value("serve.cache",
+                                                    outcome="hit")),
+                # the kernel-library builds and loads the pod made (the
+                # JAX package counts XLA compiles here)
+                "compiles": kernels.build_count() - builds0,
+                "per_replica_dispatches": {
+                    r.label: int(r.telemetry.registry.counter_total(
+                        "serve.dispatches")) for r in fleet.replicas},
+            }))
+            return 0
+        door = serve_fleet_frontdoor(fleet, host=args.host,
+                                     port=args.port,
+                                     transport=args.transport)
+        print(json.dumps({
+            "serving": True, "fleet": args.fleet,
+            "host": args.host, "port": door.server_address[1],
+            "transport": args.transport,
+            "factors": len(names), "days": source.n_days,
+            "replicas": [r.label for r in fleet.replicas],
+            "devices": {r.label: [str(d) for d in r.devices]
+                        for r in fleet.replicas},
+            "pid": os.getpid()}), flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            door.shutdown()
+            write_bundle()
     return 0
 
 

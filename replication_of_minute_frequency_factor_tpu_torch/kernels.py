@@ -7,6 +7,12 @@ build takes seconds. Libraries go to ``build/kernels/`` at the checkout
 root, named by a hash of the source and the flags, so an edited source
 builds anew. A library builds on first use, or up front through
 :func:`build`, which starts one ``nvcc`` per source, all at once.
+
+:data:`COUNTS` counts what this process really builds: each ``nvcc`` run
+(``build``) and each ``dlopen`` of a library (``load``).
+:func:`build_count` is their sum, the count the serving layer's warm
+gates and discovery's ``compiles_during_loop`` read (the JAX package
+reads ``xla.compiles`` there). Torch itself compiles nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +41,14 @@ BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+#: ``nvcc`` runs and library ``dlopen`` calls made by this process
+COUNTS = {"build": 0, "load": 0}
+
+
+def build_count() -> int:
+    """The kernel-library builds and loads this process has made."""
+    return COUNTS["build"] + COUNTS["load"]
 
 
 def nvcc_path() -> str:
@@ -74,6 +88,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)
+        COUNTS["build"] += 1
     failed = []
     for n, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
@@ -95,5 +110,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]))
+            COUNTS["load"] += 1
             _LIBS[name] = lib
         return lib
+
+
+def unload(name: str) -> bool:
+    """Close the named library if this process loaded it (``dlclose``:
+    ``dlopen`` hands back the object it already holds for a path); the
+    next :func:`load` opens it again. Returns whether one was loaded."""
+    import _ctypes
+
+    with _LOCK:
+        lib = _LIBS.pop(name, None)
+        if lib is not None:
+            _ctypes.dlclose(lib._handle)
+    return lib is not None

@@ -16,10 +16,19 @@ process group, chosen explicitly and never switched quietly.
 
 Bool tensors travel as their uint8 bytes. Every function takes a group
 (None: the axis has one rank, and the collective is the identity).
+
+A step that must survive one rank's failure runs its collectives under
+:func:`status_guard`: each :func:`all_gather` and :func:`all_reduce`
+then first swaps a status over the step's group (:func:`swap_status`),
+and raises :class:`PeerStepError` on every rank when any rank reported a
+failure. A rank whose own work fails swaps its error once instead of
+entering its next collective, so the ranks always meet in the same swap.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional
 
 import torch
@@ -73,6 +82,7 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     (JAX's tiled ``all_gather``)."""
     if group is None:
         return x
+    _check_peers()
     n = dist.get_world_size(group)
     dtype, dev = x.dtype, x.device
     src = _wire(x)
@@ -97,6 +107,7 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     group; ``x`` is left as it was."""
     if group is None:
         return x
+    _check_peers()
     dev = x.device
     buf = x.contiguous().clone()
     if _staged(buf, group):
@@ -154,3 +165,44 @@ def scatter_bytes(chunks: Optional[List[torch.Tensor]],
     dist.scatter_object_list(box, [c.numpy() for c in chunks]
                              if is_src else None, src=0, group=group)
     return torch.from_numpy(box[0])
+
+
+class PeerStepError(RuntimeError):
+    """A status swap of a guarded step found failed ranks; ``errors``
+    holds their reports, in group-rank order. Every rank of the step
+    raises it from the same swap."""
+
+    def __init__(self, errors: List[str]):
+        super().__init__("; ".join(errors))
+        self.errors = list(errors)
+
+
+_GUARD = threading.local()
+
+
+@contextlib.contextmanager
+def status_guard(group):
+    """Within the block, on this thread, every :func:`all_gather` and
+    :func:`all_reduce` first swaps a status over ``group`` (None: no
+    swap). One small object all-gather a collective."""
+    prev = getattr(_GUARD, "group", None)
+    _GUARD.group = group
+    try:
+        yield
+    finally:
+        _GUARD.group = prev
+
+
+def swap_status(err: Optional[str], group) -> List[str]:
+    """This rank's error report (None: it is fine) swapped over
+    ``group``; returns every rank's report that is not None."""
+    return [e for e in all_gather_object(err, group) if e is not None]
+
+
+def _check_peers() -> None:
+    group = getattr(_GUARD, "group", None)
+    if group is None:
+        return
+    errors = swap_status(None, group)
+    if errors:
+        raise PeerStepError(errors)

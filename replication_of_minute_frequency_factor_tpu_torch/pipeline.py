@@ -1156,32 +1156,39 @@ def _mesh_step(mesh, head, chunks=None):
     the tickers axis), the results gathered back. Returns the batch's
     ``[F, D, Tp]`` on rank 0, None elsewhere.
 
-    The ranks swap a status before the gather, so a step that fails on
-    any rank raises on rank 0 (which retries or isolates it as any
-    failed batch) while every rank stays in step for the next one. A
-    rank that fails before one of the step's own collectives (the
-    ``doc_pdf*`` gather) leaves the others in it: gloo then raises on
-    the mismatch, NCCL waits out the process group's timeout, and the
-    run aborts with its completed batches saved."""
+    The ranks swap a status ahead of every collective of the step
+    (``transport.status_guard``) and once more after its compute, before
+    the result gather. A rank whose compute fails swaps its error instead
+    of entering its next collective, so every rank learns of the failure
+    in the same swap: rank 0 raises (and retries or isolates the batch as
+    any failed batch) and every rank stays in step for the next one,
+    whether the failure came before the ``doc_pdf*`` gather or after it.
+    Not covered: a failure inside a collective itself (a transport error,
+    a rank that dies): gloo then raises on the other ranks, NCCL waits out
+    the process group's timeout, and the run aborts with its completed
+    batches saved."""
     from .parallel import transport
     from .parallel.mesh import TICKERS_AXIS
 
     _, spec, kind, names, replicate_quirks, rolling_impl = head
     group = mesh.group(TICKERS_AXIS)
     mine = transport.scatter_bytes(chunks, group)
-    y, err = None, None
-    try:
-        if mesh.device.type == "cuda":
-            mine = mine.pin_memory().to(mesh.device, non_blocking=True)
-        with mesh:
-            y = _packed_step(mine, spec, kind, names, replicate_quirks,
-                             rolling_impl, None, False, None,
-                             xs_axis_name=TICKERS_AXIS)
-    except Exception as e:  # noqa: BLE001 — reported to rank 0
-        logger.warning("mesh step failed on rank %d: %s", mesh.rank, e)
-        err = f"rank {mesh.rank}: {type(e).__name__}: {e}"
-    errs = [e for e in transport.all_gather_object(err, group)
-            if e is not None]
+    y, err, errs = None, None, None
+    with transport.status_guard(group):
+        try:
+            if mesh.device.type == "cuda":
+                mine = mine.pin_memory().to(mesh.device, non_blocking=True)
+            with mesh:
+                y = _packed_step(mine, spec, kind, names, replicate_quirks,
+                                 rolling_impl, None, False, None,
+                                 xs_axis_name=TICKERS_AXIS)
+        except transport.PeerStepError as e:  # every rank saw this swap
+            errs = e.errors
+        except Exception as e:  # noqa: BLE001 — reported to rank 0
+            logger.warning("mesh step failed on rank %d: %s", mesh.rank, e)
+            err = f"rank {mesh.rank}: {type(e).__name__}: {e}"
+    if errs is None:
+        errs = transport.swap_status(err, group)
     if errs:
         if mesh.rank == 0:
             raise RuntimeError("mesh step failed: " + "; ".join(errs))
@@ -1209,7 +1216,7 @@ BACKENDS = ("torch", "numpy", "polars")
 POLARS_REFUSAL = (
     "backend='polars' is not ported: it runs the reference's own kernels "
     "through tools/refdiff, whose harness imports the JAX package, and "
-    "the port imports none of it (ROADMAP Queue 1 item 7); "
+    "the port imports none of it (ROADMAP Queue 1 item 7c); "
     "backend='numpy' runs the f64 oracle")
 
 

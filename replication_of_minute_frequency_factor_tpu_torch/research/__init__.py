@@ -9,8 +9,8 @@ IC + decile long-short spread, :mod:`.fitness`), a host GA around it
 serveable factor name (:mod:`.registry`). ``serve/`` has a
 ``research=True`` mode that runs discovery jobs on the request queue and
 serves the results live. The population sharded over several cards
-(``DiscoveryEngine(mesh=)``) waits with the fleet (ROADMAP Queue 1
-item 7).
+(``DiscoveryEngine(mesh=)``), a placement inside one server process, is
+not ported yet (ROADMAP Queue 1 item 7a).
 """
 
 from .evolve import DiscoveryEngine, DiscoveryResult

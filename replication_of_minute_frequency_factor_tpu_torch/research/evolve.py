@@ -13,13 +13,16 @@ fetch of the generation's stats matrix, counted at the call site in
 plan goes up in one non-blocking copy from pinned memory, and nothing
 else crosses the boundary until the next generation's fetch.
 
-Build budget: torch compiles nothing. ``compiles_during_loop`` counts the
-executable cache's misses (``serve.executables{outcome=miss}``, a new
-key bound) during the generation loop, where the JAX package counts
-``xla.compiles``; after :meth:`DiscoveryEngine.warmup` it reads 0.
+Build budget: torch compiles nothing. ``compiles_during_loop`` counts
+what the process builds during the generation loop
+(:func:`..kernels.build_count`: ``nvcc`` runs and kernel-library loads),
+where the JAX package counts ``xla.compiles``; a generation loads no
+kernel library, so it reads 0. The executable cache's
+``serve.executables{outcome=miss}`` counts the callables' keys, and
+after :meth:`DiscoveryEngine.warmup` the loop adds none.
 
 The population-sharded engine (``mesh=``), a placement inside one server
-process, waits with the fleet and raises.
+process, is not ported yet (ROADMAP Queue 1 item 7a) and raises.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from .. import search
 SKELETONS = {"default": search.DEFAULT_SKELETON,
              "rich": search.RICH_SKELETON}
 
-_ITEM7 = "ROADMAP Queue 1 item 7"
+_PLACEMENTS = "ROADMAP Queue 1 item 7a"
 
 
 def resolve_skeleton(skeleton) -> Tuple[int, ...]:
@@ -92,8 +95,8 @@ class DiscoveryResult:
     occupancy: float                # pop / padded population
     n_shards: int
     syncs_per_generation: float     # measured counter delta / gens
-    #: callables the executable cache built during the generation loop
-    #: (``serve.executables{outcome=miss}`` delta; the JAX package counts
+    #: kernel-library builds and loads during the generation loop
+    #: (``kernels.build_count`` delta; the JAX package counts
     #: ``xla.compiles`` here, and torch compiles nothing)
     compiles_during_loop: int
     gen_walls_s: Sequence[float]
@@ -122,7 +125,7 @@ class DiscoveryEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "DiscoveryEngine(mesh=...): a population sharded over "
-                f"several cards is not ported yet ({_ITEM7})")
+                f"several cards is not ported yet ({_PLACEMENTS})")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -263,8 +266,8 @@ class DiscoveryEngine:
             return reg.counter_value("research.host_blocking_syncs",
                                      point="generation_fetch")
 
-        def built():
-            return reg.counter_value("serve.executables", outcome="miss")
+        from .. import kernels
+        built = kernels.build_count
         syncs_before = syncs()
         built_before = built()
         t_loop = time.perf_counter()

@@ -48,8 +48,8 @@ from ..ops.ranking import _canonical_key
 STAT_COLUMNS = ("fitness", "mean_ic", "mean_rank_ic", "spread")
 
 #: the population-sharded generation is a placement inside one server
-#: process, not one program per rank: it waits with the fleet
-_ITEM7 = "ROADMAP Queue 1 item 7"
+#: process, not one program per rank: not ported yet
+_PLACEMENTS = "ROADMAP Queue 1 item 7a"
 
 
 def host_forward_returns(bars: np.ndarray, mask: np.ndarray,
@@ -148,8 +148,8 @@ def generation_fitness(genomes, feats, mask, fwd_ret, fwd_valid,
 
 
 def generation_fitness_sharded(*args, **kwargs):
-    """The population-sharded generation over several cards: waits with
-    the fleet."""
+    """The population-sharded generation over several cards: not ported
+    yet."""
     raise NotImplementedError(
         "generation_fitness_sharded: a population sharded over several "
-        f"cards is not ported yet ({_ITEM7})")
+        f"cards is not ported yet ({_PLACEMENTS})")

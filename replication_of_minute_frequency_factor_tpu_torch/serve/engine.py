@@ -14,10 +14,13 @@ rolling second-moment kernel once.
 
 Every entry point here goes through the
 :class:`..serve.executables.ExecutableCache`, keyed on the device and on
-every static argument the JAX package's key holds, so a warm server
-builds NOTHING on a repeat request shape — its
-``serve.executables{outcome=miss}`` counter is the gate the JAX package's
-``xla.compiles`` is there.
+every static argument the JAX package's key holds; its
+``serve.executables{outcome=miss}`` counter counts the keys a request
+added. What a request really builds is counted by
+:func:`..kernels.build_count` (``nvcc`` runs and library loads): an
+engine that launches the kernel loads its library once, at construction,
+so a warm server builds NOTHING on any request — the gate the JAX
+package's ``xla.compiles`` is there.
 
 Results leave as device tensors, enqueued and not waited for; the
 request loop in :mod:`.service` is the boundary that fetches them.
@@ -145,6 +148,9 @@ class ServeEngine:
         self.executables = (executables if executables is not None
                             else ExecutableCache(telemetry=telemetry))
         self._floor: dict = {}
+        if self.device.type == "cuda" and self.rolling_impl == "cuda":
+            from .. import kernels
+            kernels.load("rolling_moments")
 
     def _tel(self):
         if self.telemetry is not None:
@@ -154,17 +160,9 @@ class ServeEngine:
 
     def _exe(self, label: str, key: tuple, fn):
         """The cached callable for ``key`` (the device always in it); a
-        build binds ``fn``, loading the kernel library first when a
-        block build on this engine launches the kernel."""
-        def build():
-            if (label == "serve_block" and self.device.type == "cuda"
-                    and self.rolling_impl == "cuda"):
-                from .. import kernels
-                kernels.load("rolling_moments")
-            return fn
-
+        miss binds ``fn``."""
         return self.executables.get(label, key + (str(self.device),),
-                                    build)
+                                    lambda: fn)
 
     # --- block build ----------------------------------------------------
     def build_block(self, bars: np.ndarray,

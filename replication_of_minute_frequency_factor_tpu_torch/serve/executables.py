@@ -4,12 +4,13 @@ The port of the JAX package's ``serve/executables.py``. There an entry is
 an AOT-compiled XLA executable and a miss compiles; torch compiles
 nothing, so an entry is the engine's callable bound to everything that
 shapes it (universe, factor names, quirks, rolling backend, session,
-finalize, the ingest shape, the result-wire spec), and a build binds it,
-loading the kernel library it launches on the way. The counters keep
-their names: ``serve.executables{outcome=hit|miss}`` answers "did this
-request build anything" (a warm load's miss delta of 0 is the port's form
-of the JAX gate ``xla.compiles == 0``), and the gauge
-``serve.executables_resident`` counts the entries.
+finalize, the ingest shape, the result-wire spec), and a miss binds it.
+The counters keep their names: ``serve.executables{outcome=hit|miss}``
+counts the keys looked up and added, and the gauge
+``serve.executables_resident`` counts the entries. A miss builds
+nothing: what torch really builds (``nvcc`` runs and kernel-library
+loads) is :func:`..kernels.build_count`, the port's form of the JAX
+gate ``xla.compiles == 0``.
 """
 
 from __future__ import annotations

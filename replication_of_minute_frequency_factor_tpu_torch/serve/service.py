@@ -46,9 +46,14 @@ next start), grows the served names and clears the exposure cache, so
 the next query over any range answers the new name. A failed job fails
 its own future and bumps the breaker; it never carries on elsewhere.
 
-Not ported yet (ROADMAP Queue 1 item 7): a ``devices=`` list of more than
-one card (the fleet), which raises ``NotImplementedError`` at
-construction.
+Placement: a fleet replica passes ``devices=`` (its group of devices,
+from ``fleet.replica.partition_devices``), and the server pins every
+launch, cache entry and stream carry to ``devices[0]``, as the JAX
+package's server pins its work to the submesh lead. ``health()`` names
+every device of the group. The placements that would spread one server
+over the others (``ServeConfig.stream_sharded``/``discover_sharded``)
+are not ported yet (ROADMAP Queue 1 item 7a) and refuse at construction
+when they would apply.
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ _SENTINEL = None  # queue poison pill (requests are _Pending objects)
 
 QUERY_KINDS = ("factors", "ic", "decile", "intraday")
 
-_ITEM7 = "ROADMAP Queue 1 item 7"
+_PLACEMENTS = "ROADMAP Queue 1 item 7a"
 
 
 def _fetch(x) -> np.ndarray:
@@ -223,6 +228,17 @@ class ServeConfig:
     #: not an unbounded compute endpoint
     discover_max_generations: int = 64
     discover_max_pop: int = 8192
+    #: shard discovery populations over this server's devices: applied
+    #: only when the server has more than one device, otherwise the
+    #: engine runs on one, silently (the JAX package's contract). Not
+    #: ported yet: with several devices it refuses at construction
+    discover_sharded: bool = False
+    #: place the streaming carry over a tickers mesh spanning this
+    #: server's devices: applied only when the server has more than one
+    #: device and the universe divides over them, otherwise the carry
+    #: stays on one, silently (``stream.carry_sharded`` reads 0). Not
+    #: ported yet: where it would apply it refuses at construction
+    stream_sharded: bool = False
     #: front-door transport the CLI binds: ``edge`` is the
     #: evented selectors loop (:mod:`.edge` — keep-alive, pipelining,
     #: binary wire answers, per-tenant quotas); ``legacy`` keeps the
@@ -289,10 +305,6 @@ class FactorServer:
         from ..models.registry import factor_names
         from ..pipeline import resolve_device
         from ..telemetry import get_telemetry
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                f"FactorServer(devices=[{len(devices)} devices]): a "
-                f"replica over several cards is not ported yet ({_ITEM7})")
         if devices and device is not None \
                 and torch.device(devices[0]) != torch.device(device):
             raise ValueError(f"devices={list(devices)} and device="
@@ -303,18 +315,28 @@ class FactorServer:
         self.scfg = serve_cfg or ServeConfig()
         self.telemetry = telemetry if telemetry is not None \
             else get_telemetry()
-        #: replica identity: ``replica_label`` names this server in
-        #: health payloads / flight dumps; ``devices`` (one device) pins
-        #: it like ``device``. A standalone server keeps both unset.
+        #: replica identity: the fleet builds N servers over groups of
+        #: devices; ``replica_label`` names this one in health payloads /
+        #: flight dumps and ``devices`` is its group, whose first device
+        #: it runs on (the others are there for the in-server placements,
+        #: not ported yet). A standalone server keeps both unset.
         self.replica_label = replica_label or "standalone"
         #: the one device every block, carry and query lives on (default
         #: the card; raises when none is present — never a quiet CPU
         #: fallback)
-        self.device = resolve_device(devices[0] if devices else device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        self.devices: Optional[tuple] = (tuple(devices) if devices
-                                         else None)
+        self.device = _indexed(resolve_device(devices[0] if devices
+                                              else device))
+        self.devices: Optional[tuple] = (
+            tuple(_indexed(torch.device(d)) for d in devices)
+            if devices else None)
+        n_devices = len(self.devices or ())
+        if n_devices > 1 and (self.scfg.discover_sharded and research
+                              or self.scfg.stream_sharded and stream
+                              and source.n_tickers % n_devices == 0):
+            raise NotImplementedError(
+                "ServeConfig.stream_sharded/discover_sharded: a carry or "
+                "a population spread over a replica's devices is not "
+                f"ported yet ({_PLACEMENTS})")
         #: the stream every launch of this server goes to: the one
         #: current on the constructor's thread, where the stream engine
         #: is built and warmed; the worker enters it too
@@ -705,7 +727,8 @@ class FactorServer:
             open_until = self._open_until
             consecutive = self._consecutive
         hbm = self.telemetry.hbm.sample("healthz")
-        device_names = [_device_name(self.device)]
+        device_names = [_device_name(d)
+                        for d in (self.devices or (self.device,))]
         payload = {
             "ok": True, "factors": len(self.names),
             "days": self.source.n_days,
@@ -1330,6 +1353,13 @@ class FactorServer:
             "counts": _fetch(counts).tolist(),
             "mean_fwd_ret": _fetch(mean_ret).tolist()})
         return out
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """A ``cuda`` device without an index as the current one's."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _device_name(device: torch.device) -> str:

@@ -95,7 +95,7 @@ class StreamEngine:
             raise NotImplementedError(
                 "StreamEngine(mesh=...): a ticker-sharded carry is a "
                 "placement inside one server process, not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+                "(ROADMAP Queue 1 item 7a)")
         self.device = resolve_device(device)
         self.n_tickers = int(n_tickers)
         #: the market session: sizes the day buffer ([T, S, 5]), bounds

@@ -180,11 +180,15 @@ def test_unported_flags_and_subcommands_are_rejected(argv, capsys):
 
 
 def test_serve_fleet_and_research_exit_2_naming_the_roadmap(capsys):
-    """``serve --fleet N>0`` is not ported: it exits 2 and says which
-    ROADMAP item it waits for. ``serve --research`` is ported now: it
-    no longer exits 2, and a research server answers the demo."""
-    assert main(["serve", "--fleet", "2", "--device", "cpu"]) == 2
-    assert "ROADMAP Queue 1 item 7" in capsys.readouterr().err
+    """``serve --fleet N`` and ``serve --research`` are both ported: they
+    no longer exit 2. The fleet's demo routes through two replicas on
+    the CPU (held to the JAX CLI by tests/test_torch_fleet.py), and a
+    research server answers the demo."""
+    assert main(["serve", "--fleet", "2", "--device", "cpu", "--demo", "3",
+                 "--synthetic-days", "4", "--synthetic-tickers", "8",
+                 "--factors", "vol_return1min"]) == 0
+    out = _last_json(capsys)
+    assert (out["fleet"], out["live_replicas"], out["routed"]) == (2, 2, 3)
     assert main(["serve", "--research", "--demo", "1", "--device", "cpu",
                  "--synthetic-days", "4", "--synthetic-tickers", "8",
                  "--factors", "vol_return1min"]) == 0

@@ -479,6 +479,71 @@ def test_served_block_on_the_card_matches_the_cpu_server():
 
 
 @pytest.mark.cuda
+def test_a_cold_engine_counts_its_kernel_library_load_in_the_loop():
+    """The serve build gate counts what the process builds
+    (``kernels.build_count``: nvcc runs and library loads), not the
+    executable cache's keys. A server on the card loads the kernel
+    library at construction, so its request loop builds nothing; once
+    the library is unloaded the engine is cold again, and its next block
+    build counts the one load it makes in the loop, while a cache hit
+    and a new range of the same extent count none."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch import kernels
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, Query, ServeConfig, SyntheticSource)
+    src = SyntheticSource(n_days=8, n_tickers=64, seed=9)
+    with FactorServer(src, names=("vol_return1min", "mmt_ols_qrs"),
+                      rolling_impl="cuda", telemetry=Telemetry(),
+                      serve_cfg=ServeConfig(hbm_sample_period_s=0),
+                      device="cuda") as srv:
+        built = kernels.build_count()
+        srv.submit(Query("factors", 0, 4)).result(600)
+        assert kernels.build_count() == built
+        assert kernels.unload("rolling_moments")
+        before = dict(rolling_cuda.launches)
+        srv.submit(Query("factors", 4, 8)).result(600)
+        assert kernels.build_count() == built + 1
+        assert _launched(before) == {"tiled": 1, "rowwise": 0}
+        srv.submit(Query("factors", 4, 8)).result(600)
+        srv.submit(Query("factors", 2, 6)).result(600)
+        assert kernels.build_count() == built + 1
+
+
+@pytest.mark.cuda
+def test_fleet_on_the_card_answers_bitwise_the_standalone_server():
+    """Two replicas sharing the card (``devices=[cuda:0, cuda:0]``): the
+    routed block is built on the owner's card with one tiled launch, the
+    answer is bitwise the standalone server's on the card, and each
+    replica's health names the card."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.fleet import (
+        FactorFleet)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, Query, ServeConfig, SyntheticSource)
+    names = ("vol_return1min", "mmt_ols_qrs")
+    src = SyntheticSource(n_days=8, n_tickers=64, seed=9)
+    card = torch.device("cuda", 0)
+    scfg = ServeConfig(hbm_sample_period_s=0)
+    with FactorFleet(src, 2, names=names, rolling_impl="cuda",
+                     serve_cfg=scfg, devices=[card, card]) as pod:
+        before = dict(rolling_cuda.launches)
+        got = pod.submit(Query("factors", 0, 6)).result(600)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"tiled": 1, "rowwise": 0}
+        owner = pod.router.route_order((0, 6))[0]
+        block = owner.server.cache.get((0, 6))
+        assert {t.device for t in block.values()} == {card}
+        for h in pod.health()["replicas"].values():
+            assert h["replica"]["devices"][0].startswith("cuda:0 ")
+    with FactorServer(src, names=names, rolling_impl="cuda",
+                      serve_cfg=scfg, device="cuda") as srv:
+        want = srv.submit(Query("factors", 0, 6)).result(600)
+    for n in names:
+        assert np.asarray(got["exposures"][n], np.float32).tobytes() == \
+            np.asarray(want["exposures"][n], np.float32).tobytes()
+
+
+@pytest.mark.cuda
 def test_exposure_cache_eviction_frees_card_memory():
     """Torch cannot delete a tensor under live references; the cache drops
     its own, and nothing else holds a served block, so

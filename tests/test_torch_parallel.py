@@ -502,6 +502,40 @@ def test_compute_exposures_in_a_group_retries_a_failed_rank(ranks):
                        want)
 
 
+def test_compute_exposures_in_a_group_isolates_a_rank_failing_before_its_gather(
+        tmp_path):
+    """Rank 2's compute raises before its ``doc_pdf*`` gather on the
+    first two-day batch, on the retry and on that batch's first day
+    alone. The ranks swap a status ahead of every collective of the
+    step, so none is left in the gather: rank 0 retries the batch,
+    isolates it by day as the single-device pipeline does, records the one
+    day that fails alone and completes the run, and every other day is
+    bitwise the fault-free cache. The group runs under its own time
+    limit, so a rank left in a collective fails the test instead of
+    stalling the suite."""
+    kline = tmp_path / "kline"
+    kline.mkdir()
+    _write_days(str(kline), np.random.default_rng(2))
+    results = tc.run_on_ranks(
+        [("exposures", "exposures_in_group",
+          dict(minute_dir=str(kline), names=NAMES, fail_rank=2,
+               gather_faults=3, cache_path=str(kline / "mesh.parquet")))],
+        WORLD, workdir=tmp_path, timeout_s=240)
+    assert all(r["exposures"] is None for r in results[1:])
+    got = results[0]["exposures"]
+    assert got["failures"] == [DAYS[0]]
+    assert got["retries"] == 1 and got["isolations"] == 1
+    full = pl.compute_exposures(str(kline), NAMES,
+                                cfg=Config(days_per_batch=2),
+                                progress=False, device="cpu")
+    keep = np.asarray(full.columns["date"]) != np.datetime64(DAYS[0])
+    want = pl.ExposureTable({k: np.asarray(v)[keep]
+                             for k, v in full.columns.items()})
+    _assert_same_cache(pl.ExposureTable(got["columns"]), want)
+    _assert_same_cache(pl.ExposureTable.load(str(kline / "mesh.parquet")),
+                       want)
+
+
 def test_mesh_shape_days_axis_rejected(tmp_path):
     with pytest.raises(ValueError, match="tickers axis only"):
         pl.compute_exposures(str(tmp_path), NAMES,

@@ -46,6 +46,9 @@ def test_no_module_imports_jax_or_the_jax_package():
                     for m in mods if _forbidden(m)]
     assert not bad, bad
     assert len(_port_files()) > 20
+    fleet = {p.name for p in _port_files() if p.parent.name == "fleet"}
+    assert fleet == {"__init__.py", "replica.py", "policy.py", "router.py",
+                     "http.py"}
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -77,7 +80,8 @@ def test_importing_every_port_module_loads_no_jax():
                 "oracle.stats", "utils.upload", "parallel",
                 "parallel.mesh", "parallel.collectives",
                 "parallel.transport", "parallel.multihost",
-                "parallel.launch"):
+                "parallel.launch", "fleet", "fleet.replica",
+                "fleet.policy", "fleet.router", "fleet.http"):
         assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
     # pyarrow loads only inside the functions that read and write files,
@@ -200,6 +204,51 @@ def test_kernel_source_ships_and_builds_into_an_ignored_directory():
     assert kernels.library_path("rolling_moments").parent == \
         REPO / "build" / "kernels"
     assert "/build/" in (REPO / ".gitignore").read_text().splitlines()
+
+
+def test_kernel_builds_and_loads_are_counted(monkeypatch, tmp_path):
+    """``kernels.build_count`` counts each compiler run of ``build`` and
+    each library ``load``; a loaded library is loaded once, and
+    ``unload`` closes it so the next load opens it again. Here a stand-in
+    compiler (the host's C compiler under nvcc's command line) builds a
+    real shared library, which is really opened and closed."""
+    import shutil
+    import stat
+
+    from replication_of_minute_frequency_factor_tpu_torch import kernels
+
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        pytest.skip("needs a host C compiler to build a stand-in library")
+    src = tmp_path / "stand_in.c"
+    src.write_text("int rolling_error_string(int c) { return c; }\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do\n"
+        '  if [ "$1" = "-o" ]; then out="$2"; fi; shift\n'
+        "done\n"
+        f'exec {cc} -shared -fPIC -o "$out" {src}\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    (tmp_path / "cuda" / "bin").mkdir(parents=True)
+    (tmp_path / "cuda" / "bin" / "nvcc").symlink_to(fake)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "COUNTS", {"build": 0, "load": 0})
+    kernels.unload("rolling_moments")
+    try:
+        assert kernels.build_count() == 0
+        lib = kernels.load("rolling_moments")
+        assert lib.rolling_error_string(7) == 7
+        assert kernels.COUNTS == {"build": 1, "load": 1}
+        assert kernels.load("rolling_moments") is lib
+        assert kernels.build_count() == 2
+        assert kernels.unload("rolling_moments")
+        assert not kernels.unload("rolling_moments")
+        kernels.load("rolling_moments")  # built already: a load alone
+        assert kernels.COUNTS == {"build": 1, "load": 2}
+    finally:
+        kernels.unload("rolling_moments")
 
 
 def test_the_server_refuses_the_cpu_unless_asked(monkeypatch):

@@ -355,10 +355,10 @@ def test_evolve_deterministic_under_explicit_rng():
 
 def test_the_population_sharded_parts_wait_for_item_6():
     """Population-sharded discovery is a placement inside one server
-    process: it moved with the fleet to ROADMAP Queue 1 item 7."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    process: after the fleet it is ROADMAP Queue 1 item 7a."""
+    with pytest.raises(NotImplementedError, match="item 7a"):
         DiscoveryEngine(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7a"):
         PF.generation_fitness_sharded()
 
 

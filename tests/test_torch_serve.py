@@ -498,18 +498,43 @@ def test_health_carries_replica_identity_block():
 
 
 def test_unported_parts_refuse_at_construction():
-    """Multi-card replicas are not ported: they refuse loudly at
-    construction, naming the ROADMAP item (the CPU refusal is
-    tests/test_torch_purity.py's). Discovery is ported now:
-    ``research=True`` builds a research server (its behaviour is
-    tests/test_torch_research.py's)."""
+    """A device list builds a replica's server: it runs on the first
+    device and ``health()`` names them all. The placements that would
+    spread one server over the list's other devices are not ported:
+    they refuse loudly at construction where they would apply, naming
+    the ROADMAP item (the CPU refusal is tests/test_torch_purity.py's).
+    Discovery is ported: ``research=True`` builds a research server
+    (its behaviour is tests/test_torch_research.py's)."""
     src = SyntheticSource(n_days=4, n_tickers=8, seed=3)
     with FactorServer(src, names=NAMES, research=True, device="cpu",
                       serve_cfg=ServeConfig(hbm_sample_period_s=0)) as srv:
         assert srv.factor_list()["research"] is True
         assert srv.health()["research"] is True
-    with pytest.raises(NotImplementedError, match="item 7"):
-        FactorServer(src, names=NAMES, devices=["cpu", "cpu"])
+    with FactorServer(src, names=NAMES, devices=["cpu", "cpu"],
+                      replica_label="r0") as srv:
+        assert srv.device == torch.device("cpu")
+        assert srv.devices == (torch.device("cpu"),) * 2
+        rep = srv.health()["replica"]
+        assert rep["label"] == "r0" and rep["devices"] == ["cpu", "cpu"]
+        a = srv.submit(Query("factors", 0, 2)).result(60)
+    with FactorServer(src, names=NAMES, device="cpu") as alone:
+        b = alone.submit(Query("factors", 0, 2)).result(60)
+    for n in NAMES:
+        assert np.asarray(a["exposures"][n]).tobytes() == \
+            np.asarray(b["exposures"][n]).tobytes()
+    with pytest.raises(ValueError, match="different devices"):
+        FactorServer(src, names=NAMES, devices=["cpu"], device="cuda:0")
+    for kw, flag in (({"stream": True}, "stream_sharded"),
+                     ({"research": True}, "discover_sharded")):
+        with pytest.raises(NotImplementedError, match="item 7a"):
+            FactorServer(src, names=NAMES, devices=["cpu", "cpu"],
+                         serve_cfg=ServeConfig(**{flag: True}), **kw)
+        # one device: the knob does not apply, as in the JAX package
+        with FactorServer(src, names=NAMES, devices=["cpu"], start=False,
+                          serve_cfg=ServeConfig(**{flag: True,
+                                                   "hbm_sample_period_s": 0}),
+                          **kw):
+            pass
 
 
 def test_concurrent_clients_under_load_all_answered(monkeypatch):

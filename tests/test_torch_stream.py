@@ -428,7 +428,7 @@ def test_ticker_count_mismatch_and_bad_inputs_raise():
         with pytest.raises(ValueError, match="cohort indices"):
             eng.ingest_cohort(np.zeros((1, 5), np.float32),
                               np.array([bad], np.int32))
-    with pytest.raises(NotImplementedError, match="mesh.*item 7"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 7a"):
         _engine(4, names=FAMILY[:1], mesh=object())
     with pytest.raises(ValueError, match="finalize_impl"):
         _engine(4, names=FAMILY[:1], finalize_impl="warm")

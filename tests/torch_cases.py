@@ -834,20 +834,34 @@ def job_year_1d(rank, path, spec, kind, names, n_logical, rspec=None,
 
 
 def job_exposures_in_group(rank, minute_dir, names, cache_path,
-                           fail_rank=None):
+                           fail_rank=None, gather_faults=0):
     """``compute_exposures(mesh_shape=(1, world))`` on every rank of the
     group, as under torchrun; ``fail_rank``'s first step raises once
-    its collectives are done. Rank 0's table columns, failed days and
-    retries; None on the others."""
+    its collectives are done, or, with ``gather_faults`` = k, its first
+    k ``doc_pdf*`` rank gathers raise before they gather. Rank 0's table
+    columns, failed days, retries and batch isolations; None on the
+    others."""
     import torch.distributed as dist
 
     from replication_of_minute_frequency_factor_tpu_torch import pipeline
     from replication_of_minute_frequency_factor_tpu_torch.config import (
         Config)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        collectives)
     from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
         Telemetry)
 
-    if rank == fail_rank:
+    if rank == fail_rank and gather_faults:
+        real_rank, faults = collectives.xs_global_rank_local, []
+
+        def failing(*args, **kw):
+            if len(faults) < gather_faults:
+                faults.append(1)
+                raise RuntimeError("injected fault before the gather")
+            return real_rank(*args, **kw)
+
+        collectives.xs_global_rank_local = failing
+    elif rank == fail_rank:
         real, calls = pipeline._packed_step, []
 
         def flaky(*args, **kw):
@@ -866,7 +880,9 @@ def job_exposures_in_group(rank, minute_dir, names, cache_path,
     if out is None:
         return None
     return {"columns": out.columns, "failures": sorted(out.failures.keys()),
-            "retries": tel.registry.counter_total("pipeline.retries")}
+            "retries": tel.registry.counter_total("pipeline.retries"),
+            "isolations": tel.registry.counter_total(
+                "pipeline.batch_isolations")}
 
 
 def job_nccl_probe(rank):
