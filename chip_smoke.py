@@ -227,13 +227,41 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    version. 15b: the CLI's ``serve --fleet 1 --demo 12`` in process on the
    default device list (every visible card): one live replica, 12 routed,
    the rolling impl resolved ``cuda``.
+16. the in-server placements, every shard on ``cuda:0`` (so the times are
+   the placement's price on one card, not multi-card scaling). 16a:
+   ``StreamEngine(5000, mesh=resident_mesh(2, devices=[cuda:0] * 2))``
+   folds phase 10's day in 16-minute micro-batches beside an unsharded
+   engine: the exact snapshots at minutes 60, 120 and 240 bitwise the
+   unsharded ones (NaN lanes apart), each launching the tiled kernel once
+   a shard (counts set to 0 just before, read just after), resolved
+   ``cuda``; ``snapshot_wire_stats`` byte-identical with bitwise stats;
+   the day as 240 cohorts plus ``advance`` on the shards leaving every
+   carry leaf bitwise the scan path's; a save at minute 120 on either
+   placement restored onto the other finishing bitwise; no callable built
+   after warmup; the carry restored onto 4 shards snapshotting bitwise.
+   Timed with CUDA events: fold, cohort and snapshot on both placements,
+   and the tiled kernel at a shard's ``[2500, 240]`` and ``[1250, 240]``
+   (minute-60 prefix) in turns with its plain version. 16b:
+   ``DiscoveryEngine(mesh=)`` over two shards on phase 12's slab at
+   population 2048 (chunk 16): a warm generation under
+   ``set_sync_debug_mode("error")`` bitwise the single-device one, then 3
+   generations of both with the same genome and history, one sync a
+   generation, no build, candidates/s of both. 16c: a ``FactorServer``
+   over phase 11's source with ``devices=[cuda:0] * 2``, ``stream=True``,
+   ``research=True`` and both placements on: both gauges read 2, the
+   intraday answer bitwise phase 11's standalone one (the tiled kernel
+   once a shard), a discover job on 2 shards, no kernel build in the loop.
+   16d: ``FactorFleet`` of 2 replicas over ``[cuda:0] * 4`` with both
+   knobs: each replica's carry on 2 shards, the routed intraday answer
+   bitwise 16c's.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel and path (the tiled kernel on the host driver's batches, on the
 streaming snapshots, on the server's block builds, on the resident
-year's batches, on a rank's step of the sharded year and on the fleet
-replicas' block builds, the rowwise kernel on the window-20 path); the
-last is ``{"ok": true, "device": {...}}``.
+year's batches, on a rank's step of the sharded year, on the fleet
+replicas' block builds and on a shard's snapshot of the placed carry at 2
+and 4 shards, the rowwise kernel on the window-20 path); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3883,6 +3911,458 @@ def mesh_driver(tmp: Path, minute_dir: Path, table, names, card: str
         f"ranks' start-up ({card})")
 
 
+#: phase 16: the shards of the placements (every one on cuda:0: the price of
+#: the placement on one card, not scaling), the wider snapshot hold's
+#: shards, the discovery population and generations, and the discovery
+#: engines' device batch (a chunk that divides a shard's block, so the
+#: sharded and the single-device generations cut the population alike)
+PLACE_SHARDS, PLACE_SHARDS_WIDE = 2, 4
+PLACE_POP, PLACE_GENS = 2048, 3
+PLACE_DEVICE_BATCH = 16
+
+
+def shard_kernel(day, rows: int, card: str, label: str) -> dict:
+    """The tiled kernel at a shard's ``[rows, S]`` of the minute-60 prefix
+    of phase 10's day (the first ``rows`` tickers): bitwise the rowwise
+    kernel, within the parity suite's tolerances of its plain version,
+    and the two timed in turns."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+
+    pb, pm = cases.prefix_day(day[0][:rows], day[1][:rows], 60)
+    low = torch.from_numpy(pb[..., 2]).cuda().contiguous()
+    high = torch.from_numpy(pb[..., 1]).cuda().contiguous()
+    pmask = torch.from_numpy(pm).cuda()
+    args = rolling.second_moment_inputs(low, high, pmask, WINDOW)
+    valid = rolling._windowed_sum(pmask, WINDOW) > WINDOW - 0.5
+    got = rolling_cuda.second_moments(*args, WINDOW)
+    for a, b in zip(got, rolling_cuda._second_moments_rowwise(*args,
+                                                              WINDOW)):
+        if not cases.same_bits(a, b):
+            fail(f"{label}: the tiled kernel differs from the rowwise one")
+    err = hold_to_plain(label, got, rolling_cuda.second_moments_plain(
+        *args, WINDOW), valid, 1e-5, 1e-9)
+    kernel_ms, plain_ms = [], []
+    for dest, fn, clock in (
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (plain_ms, rolling_cuda.second_moments_plain, cuda_times_ms),
+            (kernel_ms, rolling_cuda.second_moments, batched_times_ms)):
+        dest += clock(lambda: fn(*args, WINDOW))
+    n, s = pm.shape
+    bound, by, mb, _ = moment_bound(n, s)
+    log(f"{label} second_moments [{n}, {s}] on a shard's minute-60 prefix "
+        f"({int(valid.sum())} valid windows): tiled bitwise rowwise, "
+        f"max_abs_err={err:.3e} vs plain; tiled {spread(kernel_ms)} "
+        f"({bound / np.median(kernel_ms):.0%} of the {bound:.4f} ms bound by "
+        f"{by}, {mb:.1f} MB); plain {spread(plain_ms)} ({card})")
+    return {"max_abs_err": err, "ms": float(np.median(kernel_ms)),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
+            "bound_by": by}
+
+
+def snapshot_launches(engine, label: str, shards: int):
+    """One exact snapshot with the launch and impl counts set to 0 just
+    before and read just after: the tiled kernel once a shard, resolved
+    cuda. Returns the snapshot, fetched."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling, rolling_cuda)
+
+    torch.cuda.synchronize()
+    rolling_cuda.reset_launches()
+    rolling.IMPL_COUNTS.clear()
+    exp, ready = engine.snapshot()
+    torch.cuda.synchronize()
+    launches, impl = dict(rolling_cuda.launches), dict(rolling.IMPL_COUNTS)
+    if launches != {"tiled": shards, "rowwise": 0}:
+        fail(f"{label}: launched {launches}; expected the tiled kernel "
+             f"{shards} times (once a shard)")
+    if impl != {("cuda", "cuda"): shards}:
+        fail(f"{label}: rolling impl resolved {impl}")
+    return exp.cpu().numpy(), ready.cpu().numpy()
+
+
+def turn_walls(full: dict, names, n: int, tel, cache) -> dict:
+    """Host walls of ``k`` unsharded engines of ``n/k`` tickers each (the
+    shards' blocks of the saved day ``full``) snapshotting in turn on this
+    thread and at once on ``k`` threads, a stream each: what the in-process
+    mesh's turn lock avoids (``parallel/local.py``)."""
+    import threading
+
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        StreamEngine)
+
+    out = {}
+    for k in (PLACE_SHARDS, PLACE_SHARDS_WIDE):
+        h = n // k
+        engs = [StreamEngine(h, names=names, telemetry=tel,
+                             rolling_impl="cuda", device="cuda",
+                             executables=cache).restore(
+            {key: (v if np.ndim(v) == 0 else v[i * h:(i + 1) * h])
+             for key, v in full.items()}) for i in range(k)]
+        streams = [torch.cuda.Stream() for _ in range(k)]
+
+        def at_once():
+            def one(e, st):
+                with torch.cuda.stream(st):
+                    e.snapshot()
+            ts = [threading.Thread(target=one, args=a)
+                  for a in zip(engs, streams)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+
+        in_turn, together = [], []
+        for dest, fn in ((in_turn, lambda: [e.snapshot() for e in engs]),
+                         (together, at_once), (together, at_once),
+                         (in_turn, lambda: [e.snapshot() for e in engs])):
+            dest += wall_times_ms(fn, 3)
+        out[k] = (in_turn, together)
+    return out
+
+
+def placements_path(day, standalone: dict, card: str):
+    """Phase 16: the in-server placements on the card; see the module
+    docstring. Returns the kernels line's entries for the tiled kernel at
+    a shard's snapshot, 2 and 4 shards."""
+    import tempfile
+
+    from replication_of_minute_frequency_factor_tpu_torch import (
+        StreamEngine, kernels, search)
+    from replication_of_minute_frequency_factor_tpu_torch.data import (
+        result_wire as rw)
+    from replication_of_minute_frequency_factor_tpu_torch.fleet import (
+        FactorFleet)
+    from replication_of_minute_frequency_factor_tpu_torch.models import (
+        factor_names)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        rolling_cuda)
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        resident_mesh)
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        DiscoveryEngine, host_forward_returns)
+    from replication_of_minute_frequency_factor_tpu_torch.serve import (
+        FactorServer, Query, ServeConfig, SyntheticSource)
+    from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
+        Telemetry)
+
+    names = factor_names()
+    day_bars, day_mask = day
+    n, s = day_mask.shape
+    card0 = torch.device("cuda", 0)
+    log(f"phase 16 input: phase 10's day, {n} tickers x {s} slots, all "
+        f"{len(names)} factors, rolling_impl=cuda; every shard on {card0}: "
+        f"the times below are the price of the placement on one card, not "
+        f"multi-card scaling ({card})")
+
+    # 16a. the stream: 2 shards against the unsharded engine
+    mesh = resident_mesh(PLACE_SHARDS, devices=[card0] * PLACE_SHARDS)
+    mesh4 = resident_mesh(PLACE_SHARDS_WIDE,
+                          devices=[card0] * PLACE_SHARDS_WIDE)
+    tel = Telemetry()
+    plain = StreamEngine(n, names=names, telemetry=tel, rolling_impl="cuda",
+                         device="cuda")
+    cache = plain.executables
+    engines = {"unsharded": plain}
+    engines["sharded"] = StreamEngine(n, names=names, telemetry=tel,
+                                      rolling_impl="cuda", mesh=mesh,
+                                      executables=cache)
+    for eng in engines.values():
+        eng.result_spec = rw.ResultWireSpec.for_names(
+            names, spill_rows=STREAM_SPILL_ROWS, days=1)
+        eng.warmup(micro_batches=(STREAM_MICRO, 12, 8), cohorts=(n,))
+    sharded = engines["sharded"]
+    reg = tel.registry
+
+    def misses():
+        return reg.counter_value("serve.executables", outcome="miss")
+
+    built = misses()
+    fold_ms = {k: [] for k in engines}
+    snap_ms = {k: [] for k in engines}
+    launches_2 = 0
+    saved = {}
+    lo = 0
+    for stop in STREAM_SNAPSHOTS:
+        while lo < stop:
+            hi = min(lo + STREAM_MICRO, stop)
+            b, p = cases.minutes_of(day_bars, day_mask, lo, hi)
+            for label, eng in engines.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                eng.ingest_minutes(b, p)
+                end.record()
+                torch.cuda.synchronize()
+                if hi - lo == STREAM_MICRO:
+                    fold_ms[label].append(start.elapsed_time(end))
+            lo = hi
+        got = snapshot_launches(sharded, f"phase 16a sharded snapshot at "
+                                f"minute {stop}", PLACE_SHARDS)
+        launches_2 += PLACE_SHARDS
+        want = tuple(x.cpu().numpy() for x in plain.snapshot())
+        if not (same_values(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            fail(f"phase 16a: the sharded snapshot at minute {stop} differs "
+                 "from the unsharded engine's")
+        if stop in STREAM_TIMED:
+            for label in ("unsharded", "sharded", "sharded", "unsharded"):
+                snap_ms[label] += cuda_times_ms(
+                    lambda: engines[label].snapshot(), iters=5, warmup=1)
+        if stop == 120:
+            saved = {k: e.save() for k, e in engines.items()}
+        log(f"phase 16a minute {stop}: the {PLACE_SHARDS}-shard snapshot "
+            f"launched the tiled kernel once a shard and is bitwise the "
+            f"unsharded engine's (NaN lanes apart), readiness equal")
+    pa, ra, sa = plain.snapshot_wire_stats()
+    pb_, rb, sb = sharded.snapshot_wire_stats()
+    if not (torch.equal(pa.cpu(), pb_.cpu()) and torch.equal(ra.cpu(),
+                                                             rb.cpu())
+            and cases.same_bits(sa.cpu(), sb.cpu())):
+        fail("phase 16a: snapshot_wire_stats differs between the placements")
+    log(f"phase 16a snapshot_wire_stats at minute 240: the payload "
+        f"({pa.numel()} B) byte-identical, the stats bitwise")
+    full = plain.save()
+    differ = carry_leaves_equal(full, sharded.save())
+    if differ:
+        fail(f"phase 16a: the sharded carry differs at {differ}")
+
+    # the day as 240 cohorts + advance on both placements, in turns
+    cohorts = {k: StreamEngine(n, names=names, telemetry=tel,
+                               rolling_impl="cuda", executables=cache,
+                               **({"mesh": mesh} if k == "sharded"
+                                  else {"device": "cuda"}))
+               for k in engines}
+    cohort_ms = {k: [] for k in engines}
+    idx_all = np.arange(n, dtype=np.int32)
+    for t in range(s):
+        idx = np.where(day_mask[:, t], idx_all, n).astype(np.int32)
+        rows = np.ascontiguousarray(day_bars[:, t])
+        for label, eng in cohorts.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eng.ingest_cohort(rows, idx)
+            eng.advance()
+            end.record()
+            torch.cuda.synchronize()
+            cohort_ms[label].append(start.elapsed_time(end))
+    differ = carry_leaves_equal(full, cohorts["sharded"].save())
+    if differ:
+        fail(f"phase 16a: the sharded cohort day's carry differs from the "
+             f"scan path's at {differ}")
+    log(f"phase 16a cohort path: {s} cohorts of {n} rows + advance on "
+        f"{PLACE_SHARDS} shards; every carry leaf ({len(full)}) bitwise the "
+        "unsharded scan path's")
+    del cohorts
+
+    # save at 120 on one placement, restore on the other, finish the day
+    for src_label, dst in (("unsharded", {"mesh": mesh}),
+                           ("sharded", {"device": "cuda"})):
+        eng = StreamEngine(n, names=names, telemetry=tel,
+                           rolling_impl="cuda", executables=cache, **dst)
+        eng.restore(saved[src_label])
+        for lo in range(120, s, STREAM_MICRO):
+            eng.ingest_minutes(*cases.minutes_of(
+                day_bars, day_mask, lo, min(lo + STREAM_MICRO, s)))
+        if carry_leaves_equal(full, eng.save()) or not same_values(
+                eng.snapshot()[0].cpu().numpy(), want[0]):
+            fail(f"phase 16a: the {src_label} save at minute 120 restored "
+                 "onto the other placement finished differently")
+    log("phase 16a restart: a save at minute 120 on either placement, "
+        "restored onto the other, finished the day bitwise")
+    if misses() != built:
+        fail(f"phase 16a: {int(misses() - built)} callables built after "
+             "warmup")
+
+    # the 4-shard snapshot hold on the finished day
+    wide = StreamEngine(n, names=names, telemetry=tel, rolling_impl="cuda",
+                        mesh=mesh4, executables=cache).restore(full)
+    got4 = snapshot_launches(wide, "phase 16a 4-shard snapshot",
+                             PLACE_SHARDS_WIDE)
+    if not (same_values(got4[0], want[0]) and np.array_equal(got4[1],
+                                                             want[1])):
+        fail("phase 16a: the 4-shard snapshot differs from the unsharded")
+    snap4_ms = cuda_times_ms(lambda: wide.snapshot(), iters=5, warmup=1)
+    turns = turn_walls(full, names, n, tel, cache)
+    log(f"phase 16a {PLACE_SHARDS_WIDE} shards: a carry restored from the "
+        "finished day snapshots bitwise the unsharded engine, the tiled "
+        "kernel once a shard")
+    log(f"phase 16a times ({card}; CUDA events on the caller's stream, "
+        f"which waits for every shard's): {STREAM_MICRO}-minute fold "
+        + "; ".join(f"{k} {spread(v)}" for k, v in fold_ms.items())
+        + "; cohort of " + f"{n} + advance "
+        + "; ".join(f"{k} {spread(v)}" for k, v in cohort_ms.items())
+        + "; exact snapshot at minutes 60 and 240 "
+        + "; ".join(f"{k} {spread(v)}" for k, v in snap_ms.items())
+        + f"; {PLACE_SHARDS_WIDE}-shard snapshot at 240 {spread(snap4_ms)}")
+    log(f"phase 16a why the shards take turns ({card}; host walls to a "
+        "synchronize): k unsharded engines of n/k tickers each, restored "
+        "from the finished day, snapshot in turn on one thread, and at once "
+        "on k threads with a stream each: " + "; ".join(
+            f"k={k}: in turn {spread(a)}, at once {spread(b)}"
+            for k, (a, b) in turns.items()))
+    entry2 = shard_kernel(day, n // PLACE_SHARDS, card, "phase 16a")
+    entry4 = shard_kernel(day, n // PLACE_SHARDS_WIDE, card, "phase 16a")
+    entry4["launches"] = PLACE_SHARDS_WIDE
+    del engines, plain, sharded, wide, saved, full
+
+    # 16b. discovery: the population over 2 shards against one device
+    bars, mask = synth_batch(DISC_TICKERS, DISC_DAYS, seed=DISC_SEED)
+    fwd_ret, fwd_valid = host_forward_returns(bars, mask, horizon=1)
+    dmesh = resident_mesh(PLACE_SHARDS, devices=[card0] * PLACE_SHARDS)
+    disc = {}
+    for label, kw in (("sharded", {"mesh": dmesh}),
+                      ("single", {"device": "cuda"})):
+        dtel = Telemetry()
+        eng = DiscoveryEngine(telemetry=dtel,
+                              device_batch=PLACE_DEVICE_BATCH, **kw)
+        data = eng.prepare(bars, mask, fwd_ret, fwd_valid)
+        eng.warmup(data, PLACE_POP)
+        disc[label] = (eng, data, dtel)
+    n_elite = disc["sharded"][0]._n_elite(PLACE_POP, 0.1)
+    g = search.random_population(np.random.default_rng(11), PLACE_POP)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {k: e._generation_exe(d, PLACE_POP, n_elite)(
+            g, *d.device_args) for k, (e, d, _) in disc.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(outs["sharded"], outs["single"]):
+        if not cases.same_bits(a.cpu(), b.cpu()):
+            fail("phase 16b: the sharded generation's stats or top-k differ "
+                 "from the single-device generation's at the matched chunk")
+    res = {}
+    for k, (e, d, _) in disc.items():
+        res[k] = e.evolve(d, pop=PLACE_POP, generations=PLACE_GENS,
+                          rng=np.random.default_rng(12))
+    rs = res["sharded"]
+    if not same_discovery(rs, res["single"]):
+        fail("phase 16b: the sharded search differs from the single-device "
+             "one under the same rng")
+    if rs.n_shards != PLACE_SHARDS or rs.syncs_per_generation != 1.0 \
+            or rs.compiles_during_loop != 0:
+        fail(f"phase 16b: n_shards {rs.n_shards}, syncs a generation "
+             f"{rs.syncs_per_generation}, builds {rs.compiles_during_loop}")
+    topk = disc["sharded"][2].registry.counter_value(
+        "mesh.collective_dispatches", label="discover_topk")
+    if topk != PLACE_GENS:
+        fail(f"phase 16b: {topk} top-k collectives for {PLACE_GENS} "
+             "generations")
+    cps = {k: PLACE_POP * PLACE_GENS / sum(r.gen_walls_s)
+           for k, r in res.items()}
+    log(f"phase 16b population {PLACE_POP} over {PLACE_SHARDS} shards of "
+        f"{card0} (chunk {PLACE_DEVICE_BATCH}): a warm generation enqueued "
+        "under set_sync_debug_mode('error'), its stats and top-k bitwise the"
+        f" single-device generation's; {PLACE_GENS} generations: the same "
+        f"genome and history, 1.0 sync a generation, 0 builds, "
+        f"{int(topk)} top-k collectives; candidates/s sharded "
+        f"{cps['sharded']:.1f} against single-device {cps['single']:.1f}; "
+        "generation walls (s) " + "; ".join(
+            f"{k} {r.gen_walls_s}" for k, r in res.items()) + f" ({card})")
+    del disc, outs, res
+
+    # 16c. the server over [cuda:0, cuda:0] with both placements
+    src = SyntheticSource(n_days=SERVE_DAYS, n_tickers=TICKERS, seed=0)
+    sbars, smask = src.slab(0, 1)
+    micro = [cases.minutes_of(sbars[0], smask[0], lo, lo + SERVE_MICRO)
+             for lo in range(0, SERVE_MINUTES, SERVE_MICRO)]
+    want_i = standalone["intraday"]
+
+    def hold_intraday(label, got):
+        if got["minute"] != SERVE_MINUTES:
+            fail(f"{label}: intraday at minute {got['minute']}")
+        for nm in names:
+            if not (same_values(got["exposures"][nm],
+                                want_i["exposures"][nm])
+                    and got["ready"][nm] == want_i["ready"][nm]):
+                fail(f"{label}: intraday {nm} differs from phase 11's "
+                     "standalone answer")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_place_") as rdir:
+        stel = Telemetry()
+        scfg = ServeConfig(slo_latency_ms=600_000.0, stream_sharded=True,
+                           discover_sharded=True, research_dir=rdir)
+        t0 = time.perf_counter()
+        srv = FactorServer(src, names=names, telemetry=stel,
+                           serve_cfg=scfg, rolling_impl="cuda", stream=True,
+                           stream_batches=(SERVE_MICRO,), research=True,
+                           devices=[card0] * PLACE_SHARDS)
+        up_s = time.perf_counter() - t0
+        try:
+            gauges = {k: stel.registry.gauge_value(k) for k in
+                      ("stream.carry_sharded", "discover.n_shards")}
+            if gauges != {"stream.carry_sharded": PLACE_SHARDS,
+                          "discover.n_shards": PLACE_SHARDS}:
+                fail(f"phase 16c: gauges {gauges}")
+            builds = kernels.build_count()
+            torch.cuda.synchronize()
+            rolling_cuda.reset_launches()
+            for b, p in micro:
+                srv.ingest(b, p).result(600)
+            intraday = srv.submit(Query("intraday")).result(600)
+            torch.cuda.synchronize()
+            served = dict(rolling_cuda.launches)
+            job = srv.discover(0, SERVE_BLOCK, **DISC_JOB).result(1200)
+            built_loop = kernels.build_count() - builds
+        finally:
+            srv.close()
+    if served != {"tiled": PLACE_SHARDS, "rowwise": 0}:
+        fail(f"phase 16c: the intraday snapshot launched {served}")
+    launches_2 += served["tiled"]
+    hold_intraday("phase 16c", intraday)
+    if job["n_shards"] != PLACE_SHARDS or job["syncs_per_generation"] != 1.0 \
+            or job["compiles_during_loop"] != 0:
+        fail(f"phase 16c discover job: {job}")
+    if built_loop:
+        fail(f"phase 16c: {built_loop} kernel builds or loads in the loop")
+    log(f"phase 16c FactorServer(devices=[{card0}] * {PLACE_SHARDS}, "
+        f"stream_sharded, discover_sharded) up in {up_s:.2f} s: gauges "
+        f"{gauges}; intraday at minute {SERVE_MINUTES} bitwise phase 11's "
+        f"standalone answer, the tiled kernel once a shard; a discover job "
+        f"({DISC_JOB}) on {job['n_shards']} shards named {job['name']} "
+        f"with {job['syncs_per_generation']} sync a generation; "
+        f"kernels.build_count() in the loop {built_loop}")
+
+    # 16d. the fleet: 2 replicas over [cuda:0] * 4, both knobs on
+    fcfg = ServeConfig(slo_latency_ms=600_000.0, stream_sharded=True,
+                       discover_sharded=True, cache_bytes=FLEET_CACHE_BYTES)
+    fleet = FactorFleet(src, 2, names=names, serve_cfg=fcfg,
+                        rolling_impl="cuda", stream=True,
+                        stream_batches=(SERVE_MICRO,),
+                        devices=[card0] * (2 * PLACE_SHARDS))
+    try:
+        for r in fleet.replicas:
+            got_g = r.telemetry.registry.gauge_value("stream.carry_sharded")
+            if got_g != PLACE_SHARDS or \
+                    r.server.stream_engine.mesh.size != PLACE_SHARDS:
+                fail(f"phase 16d {r.label}: stream.carry_sharded {got_g}")
+        torch.cuda.synchronize()
+        rolling_cuda.reset_launches()
+        for b, p in micro:
+            fleet.ingest(b, p, timeout=600)
+        f_intraday = fleet.submit(Query("intraday")).result(600)
+        torch.cuda.synchronize()
+        routed = dict(rolling_cuda.launches)
+    finally:
+        fleet.close()
+    if routed != {"tiled": PLACE_SHARDS, "rowwise": 0}:
+        fail(f"phase 16d: the routed intraday snapshot launched {routed}")
+    launches_2 += routed["tiled"]
+    hold_intraday("phase 16d", f_intraday)
+    log(f"phase 16d FactorFleet(2 replicas over [{card0}] * "
+        f"{2 * PLACE_SHARDS}, both knobs): each replica's carry on "
+        f"{PLACE_SHARDS} shards; the routed intraday answer bitwise 16c's "
+        "(phase 11's), the tiled kernel once a shard")
+    mesh.close()
+    mesh4.close()
+    dmesh.close()
+    entry2["launches"] = launches_2
+    return entry2, entry4
+
+
 def kind_name(card: str) -> str:
     """The card's name from nvidia-smi's ``name, power.limit`` line."""
     return card.split(",")[0].strip()
@@ -4086,6 +4566,7 @@ def main() -> None:
     # 10. the intraday streaming engine at full width, and the packed
     # path's side outputs
     stream_line = streaming_path(bars, mask, tables, card)
+    stream_day = (bars[0].copy(), mask[0].copy())
     del bars, mask
 
     # 11. the factor server at full width
@@ -4108,9 +4589,15 @@ def main() -> None:
     # 15. the fleet: two replicas sharing the card, and the CLI's fleet
     t0 = time.perf_counter()
     fleet_line = fleet_path(standalone, card)
-    del standalone
     fleet_cli(card)
     log(f"phase 15 wall: {time.perf_counter() - t0:.1f} s")
+
+    # 16. the in-server placements: shards sharing the card
+    t0 = time.perf_counter()
+    place_line, place_wide_line = placements_path(stream_day, standalone,
+                                                  card)
+    del standalone, stream_day
+    log(f"phase 16 wall: {time.perf_counter() - t0:.1f} s")
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"
@@ -4139,7 +4626,11 @@ def main() -> None:
                           ("second_moments_resident_year", year_line),
                           ("second_moments_sharded_year", sharded_line),
                           ("second_moments_fleet_replica_block_build",
-                           fleet_line))]}),
+                           fleet_line),
+                          ("second_moments_sharded_stream_snapshot",
+                           place_line),
+                          ("second_moments_sharded_stream_snapshot_4",
+                           place_wide_line))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

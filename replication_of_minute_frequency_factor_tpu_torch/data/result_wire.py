@@ -184,10 +184,31 @@ def _pack_device(arrays) -> torch.Tensor:
 def encode_block(x: torch.Tensor, spec: ResultWireSpec,
                  xs_axis_name=None) -> torch.Tensor:
     """Quantize one ``[F, D, T]`` f32 exposure block on its device into
-    the packed ``[L] uint8`` payload (module docstring): per slice,
-    masked min/max -> affine int16 with the NaN sentinel -> round-trip
-    check against the factor's bound -> widen to the spill plane on a
-    miss.
+    the packed ``[L] uint8`` payload (module docstring); the packing of
+    :func:`encode_parts`."""
+    return _pack_device(encode_parts(x, spec, xs_axis_name))
+
+
+def join_ticker_blocks(parts) -> torch.Tensor:
+    """The packed payload of a block whose tickers were encoded in
+    contiguous blocks under a mesh (:func:`encode_parts` with
+    ``xs_axis_name``, one ``parts`` tuple a shard, in shard order, on one
+    device): ``q`` and ``spill`` joined along tickers, the replicated
+    ``scale``/``offset``/``sidx`` from the first. Byte-identical to the
+    single-device payload of the whole block."""
+    q = torch.cat([p[0] for p in parts], dim=-1)
+    spill = torch.cat([p[4] for p in parts], dim=-1)
+    _, scale, offset, sidx, _ = parts[0]
+    return _pack_device((q, scale, offset, sidx, spill))
+
+
+def encode_parts(x: torch.Tensor, spec: ResultWireSpec,
+                 xs_axis_name=None) -> tuple:
+    """The arrays of :func:`encode_block`'s payload, ``(q [F, D, T]
+    int16, scale [F, D], offset [F, D], sidx [F, D] int16, spill [R, T])``:
+    per slice, masked min/max -> affine int16 with the NaN sentinel ->
+    round-trip check against the factor's bound -> widen to the spill
+    plane on a miss.
 
     ``xs_axis_name`` (on one rank of a mesh, inside ``with mesh:``):
     ``x`` holds this rank's tickers, and each slice's min/max and widen
@@ -255,7 +276,7 @@ def encode_block(x: torch.Tensor, spec: ResultWireSpec,
     spill = torch.zeros((spec.spill_rows + 1, t), dtype=torch.float32,
                         device=dev)
     spill[target] = x.reshape(-1, t)
-    return _pack_device((q, scale, offset, sidx, spill[:spec.spill_rows]))
+    return q, scale, offset, sidx, spill[:spec.spill_rows]
 
 
 def encode_stacked(x: torch.Tensor, spec: ResultWireSpec,

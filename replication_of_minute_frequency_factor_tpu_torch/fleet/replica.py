@@ -6,7 +6,9 @@ A *replica* is one resident FactorServer with its own group of devices
 Replicas live in one process, each with its own worker thread; a
 server runs on the first device of its group (``FactorServer._device_ctx``
 makes that device and its stream current on the worker thread), as the
-JAX package's server runs on its submesh lead. The replica index/label
+JAX package's server runs on its submesh lead, and with
+``ServeConfig.stream_sharded`` its stream carry spans the whole group
+(an in-process mesh, ``parallel.local``). The replica index/label
 ride the multihost identity stamps (``process_index``/``host``) on every
 bundle the replica writes, so ``telemetry.aggregate`` folds a fleet's
 bundles exactly like a multihost pod's — the fleet IS a pod, in-process.

@@ -23,6 +23,7 @@ accumulate squared deviations over the window offsets directly —
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -40,6 +41,7 @@ ROLLING_IMPLS = ("cuda", "torch")
 #: the second moments (the JAX package counts the same pair as its
 #: ``rolling.impl`` telemetry counter)
 IMPL_COUNTS: Dict[Tuple[str, str], int] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def _windowed_sum(a, window: int):
@@ -142,7 +144,9 @@ def rolling_window_stats(x, y, mask, window: int = 50,
         raise ValueError(f"unknown rolling_impl {impl!r}; "
                          f"expected one of {ROLLING_IMPLS}")
     resolved = "cuda" if impl == "cuda" and x.device.type != "cpu" else "torch"
-    IMPL_COUNTS[(impl, resolved)] = IMPL_COUNTS.get((impl, resolved), 0) + 1
+    with _COUNT_LOCK:  # shards of an in-process mesh count from threads
+        IMPL_COUNTS[(impl, resolved)] = \
+            IMPL_COUNTS.get((impl, resolved), 0) + 1
 
     n_w = _windowed_sum(mask, window)
     valid = n_w > window - 0.5  # robust count equality for float window sums

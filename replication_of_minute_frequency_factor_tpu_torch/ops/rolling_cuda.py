@@ -17,6 +17,7 @@ CUDA tensors it launches a kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -32,8 +33,10 @@ second_moments_plain = _second_moments_conv
 TILED_WINDOW = 50
 
 #: kernel launches per kernel since the last :func:`reset_launches`; the
-#: plain path never counts
+#: plain path never counts. Shards of an in-process mesh launch from
+#: threads of their own, so each count is taken under a lock
 launches = {"tiled": 0, "rowwise": 0}
+_COUNT_LOCK = threading.Lock()
 
 _ENTRIES = {"tiled": "rolling_second_moments_tiled",
             "rowwise": "rolling_second_moments_rowwise"}
@@ -119,5 +122,6 @@ def _launch(variant: str, tensors, window: int):
         msg = lib.rolling_error_string(rc).decode()
         raise RuntimeError(f"{_ENTRIES[variant]} launch failed: {msg} "
                            f"(cudaError {rc})")
-    launches[variant] += 1
+    with _COUNT_LOCK:
+        launches[variant] += 1
     return outs

@@ -12,7 +12,13 @@ collectives on the mesh axis's process group:
 * :mod:`.collectives` — the only cross-ticker operations (moment
   statistics as all-reduces, ranks and quantile cuts as all-gathers of
   the cross-section) and the 2-D loop's cross-day carry handoff;
-* :mod:`.transport` — the collectives' NCCL/gloo transport;
+* :mod:`.transport` — the collectives' NCCL/gloo transport, and the
+  in-process one;
+* :mod:`.local` — the in-process mesh (:class:`.local.LocalMesh`, from
+  ``resident_mesh(n, devices=[...])``): one process drives a device
+  list, a worker thread a shard, and the same per-rank bodies run on
+  each shard (the server's placements: a ticker-sharded stream carry, a
+  population-sharded discovery generation);
 * :mod:`.multihost` — the process group (``init_process_group``) and the
   global mesh over hosts;
 * :mod:`.launch` — N ranks on this host in spawned processes.
@@ -28,6 +34,7 @@ from .collectives import (
     xs_qcut,
     xs_rank,
 )
+from .local import LocalMesh
 from .mesh import (
     DAYS_AXIS,
     TICKERS_AXIS,
@@ -50,6 +57,7 @@ from .mesh import (
 __all__ = [
     "DAYS_AXIS",
     "TICKERS_AXIS",
+    "LocalMesh",
     "Mesh",
     "make_mesh",
     "day_batch_spec",

@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from ..models.registry import compute_factors
 from ..ops import rank_average
+from ..ops.ranking import _canonical_key
 from ..telemetry import get_telemetry
 from . import transport
 from .mesh import DAYS_AXIS, TICKERS_AXIS, Mesh, current_mesh
@@ -198,15 +199,19 @@ def xs_population_topk_local(stats_local, k: int, n_pop: int,
     ``axis_name``: ``stats_local [P_local, 4]`` (column 0 = fitness) is
     gathered in shard order to ``[P_pad, 4]``, rows at or past ``n_pop``
     (shard padding) masked to -inf, NaN fitness below every finite one
-    (``nan_to_num(-1)``), and every rank takes the identical top-k.
+    (``nan_to_num(-1)``), and every rank takes the identical top-k,
+    ``lax.top_k``'s selection (ties to the lower index) from one stable
+    sort of the negated integer order key, as the single-device
+    generation takes it (``research.fitness.device_topk``).
     Returns ``(stats [P_pad, 4], top_vals [k], top_idx [k])``."""
     group, _, _ = axis_group(axis_name)
     full = transport.all_gather(stats_local, group, dim=0)
     fit = torch.nan_to_num(full[:, 0], nan=-1.0)
     pos = torch.arange(fit.shape[0], device=fit.device)
     fit = torch.where(pos < n_pop, fit, float("-inf"))
-    top_vals, top_idx = torch.topk(fit, k)
-    return full, top_vals, top_idx
+    key = -_canonical_key(fit).to(torch.int64)
+    top_idx = torch.sort(key, stable=True).indices[:k]
+    return full, fit[top_idx], top_idx
 
 
 def xs_carry_handoff_local(state, combine, axis_name=DAYS_AXIS,

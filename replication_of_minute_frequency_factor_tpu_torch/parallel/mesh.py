@@ -153,15 +153,45 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, device=None
     return Mesh((d, t), dev, dm)
 
 
-def resident_mesh(n_shards: Optional[int] = None, shape=None,
-                  device=None) -> Mesh:
-    """The resident loops' mesh: ``(1, n)`` tickers-only by default, or
-    a full 2-D ``(d, t)`` via ``shape``. Every rank of the process group
-    must be on the mesh (a rank per coordinate)."""
-    if shape is not None:
-        return make_mesh(tuple(shape), device)
-    return make_mesh(None if n_shards is None else (1, int(n_shards)),
-                     device)
+def resident_mesh(n_shards: Optional[int] = None,
+                  devices: Optional[Sequence] = None, shape=None,
+                  device=None):
+    """The resident loops' and the in-server placements' mesh (the JAX
+    package's ``resident_mesh(n_shards, devices, shape)``).
+
+    * ``devices`` given: the in-process :class:`.local.LocalMesh` over
+      ``devices[:n_shards]`` (all of them by default), tickers-only, a
+      worker thread a shard. ``[torch.device('cpu')] * n`` runs it on
+      the CPU; a device may repeat.
+    * no ``devices`` and a process group: a mesh of ranks, ``(1, n)``
+      tickers-only by default or a full 2-D ``(d, t)`` via ``shape``;
+      every rank of the group must be on it (a rank per coordinate), on
+      ``device`` as :func:`rank_device` resolves it.
+    * neither: the in-process mesh over every visible card (raising when
+      there is none), unless ``device`` names the CPU, which gives the
+      one-rank mesh.
+    """
+    import torch.distributed as dist
+
+    if devices is None and (dist.is_initialized() or (
+            device is not None and torch.device(device).type != "cuda")):
+        if shape is not None:
+            return make_mesh(tuple(shape), device)
+        return make_mesh(None if n_shards is None else (1, int(n_shards)),
+                         device)
+    from .local import LocalMesh, visible_cards
+
+    if devices is None:
+        devices = visible_cards()
+    devices = list(devices)
+    n = len(devices) if n_shards is None else int(n_shards)
+    if shape is not None and tuple(int(x) for x in shape) != (1, n):
+        raise ValueError(f"an in-process mesh is tickers-only (1, {n}); "
+                         f"got shape {tuple(shape)}")
+    if n < 1 or n > len(devices):
+        raise ValueError(f"a mesh of {n} shards needs {n} devices; "
+                         f"{len(devices)} given")
+    return LocalMesh(devices[:n])
 
 
 # --------------------------------------------------------------------------

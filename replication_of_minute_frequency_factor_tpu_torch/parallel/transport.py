@@ -17,6 +17,11 @@ process group, chosen explicitly and never switched quietly.
 Bool tensors travel as their uint8 bytes. Every function takes a group
 (None: the axis has one rank, and the collective is the identity).
 
+* An in-process mesh's group (:class:`.local.GroupHandle`, one shard's
+  handle on a :class:`.local.LocalGroup`) exchanges the shards' tensors
+  by reference and copies them device to device, ordered by CUDA events:
+  no host memory, no host wait (:mod:`.local`).
+
 A step that must survive one rank's failure runs its collectives under
 :func:`status_guard`: each :func:`all_gather` and :func:`all_reduce`
 then first swaps a status over the step's group (:func:`swap_status`),
@@ -34,8 +39,15 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from .local import GroupHandle
+
+_LOCAL_OPS = {dist.ReduceOp.SUM: "sum", dist.ReduceOp.MIN: "min",
+              dist.ReduceOp.MAX: "max"}
+
 
 def backend_of(group) -> str:
+    if isinstance(group, GroupHandle):
+        return "local"
     return str(dist.get_backend(group))
 
 
@@ -83,6 +95,8 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     if group is None:
         return x
     _check_peers()
+    if isinstance(group, GroupHandle):
+        return group.all_gather(x, dim)
     n = dist.get_world_size(group)
     dtype, dev = x.dtype, x.device
     src = _wire(x)
@@ -108,6 +122,8 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     if group is None:
         return x
     _check_peers()
+    if isinstance(group, GroupHandle):
+        return group.all_reduce(x, _LOCAL_OPS[op])
     dev = x.device
     buf = x.contiguous().clone()
     if _staged(buf, group):
@@ -125,7 +141,9 @@ def gather(x: torch.Tensor, group) -> Optional[List]:
     if group is None:
         return [x]
     parts = all_gather(x.unsqueeze(0), group, dim=0).unbind(0)
-    return list(parts) if dist.get_rank(group) == 0 else None
+    rank = (group.rank if isinstance(group, GroupHandle)
+            else dist.get_rank(group))
+    return list(parts) if rank == 0 else None
 
 
 def broadcast_object(obj, group=None):
@@ -139,6 +157,8 @@ def all_gather_object(obj, group) -> List:
     """Every rank's picklable host ``obj``, in group-rank order."""
     if group is None:
         return [obj]
+    if isinstance(group, GroupHandle):
+        return group.all_gather_object(obj)
     out = [None] * dist.get_world_size(group)
     dist.all_gather_object(out, obj, group=group)
     return out

@@ -1,6 +1,6 @@
 """research/ — the factor-discovery engine.
 
-The port of the JAX package's ``research/`` on one device: it
+The port of the JAX package's ``research/``: it
 mass-produces candidate factors by evolutionary search over
 :mod:`..search`'s genome space, with each generation's fitness a fused
 backtest on the device (per-candidate exposures -> per-date Pearson/rank
@@ -8,9 +8,10 @@ IC + decile long-short spread, :mod:`.fitness`), a host GA around it
 (:mod:`.evolve`), and every discovered genome registered as a stable,
 serveable factor name (:mod:`.registry`). ``serve/`` has a
 ``research=True`` mode that runs discovery jobs on the request queue and
-serves the results live. The population sharded over several cards
-(``DiscoveryEngine(mesh=)``), a placement inside one server process, is
-not ported yet (ROADMAP Queue 1 item 7a).
+serves the results live. On one device, or with the population sharded
+over an in-process mesh's devices (``DiscoveryEngine(mesh=)``,
+:func:`.fitness.generation_fitness_sharded`), as a server with
+``ServeConfig.discover_sharded`` and several devices runs it.
 """
 
 from .evolve import DiscoveryEngine, DiscoveryResult

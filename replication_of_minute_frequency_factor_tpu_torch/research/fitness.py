@@ -27,6 +27,12 @@ indexing, no ``nonzero``, and the index upload is a non-blocking copy
 from pinned memory (``tests/test_torch_cuda.py`` runs a generation under
 ``torch.cuda.set_sync_debug_mode("error")``).
 
+The population-sharded generation (:func:`generation_fitness_sharded`)
+runs the same body on each shard of an in-process mesh, on its block of
+the padded population against its own copy of the feature bank, then the
+one collective: the end-of-generation top-k gather
+(``parallel.collectives.xs_population_topk_local``).
+
 Stats column order (the ``[P, 4]`` matrix): ``fitness`` (=|mean IC|, the
 selection scalar — NaN when no date produced an IC), ``mean_ic``
 (signed), ``mean_rank_ic`` (signed Spearman), ``spread`` (mean decile
@@ -46,11 +52,6 @@ from ..ops.ranking import _canonical_key
 
 #: stats-matrix column order (see module docstring)
 STAT_COLUMNS = ("fitness", "mean_ic", "mean_rank_ic", "spread")
-
-#: the population-sharded generation is a placement inside one server
-#: process, not one program per rank: not ported yet
-_PLACEMENTS = "ROADMAP Queue 1 item 7a"
-
 
 def host_forward_returns(bars: np.ndarray, mask: np.ndarray,
                          horizon: int = 1
@@ -147,9 +148,56 @@ def generation_fitness(genomes, feats, mask, fwd_ret, fwd_valid,
     return stats, top_vals, top_idx
 
 
-def generation_fitness_sharded(*args, **kwargs):
-    """The population-sharded generation over several cards: not ported
-    yet."""
-    raise NotImplementedError(
-        "generation_fitness_sharded: a population sharded over several "
-        f"cards is not ported yet ({_PLACEMENTS})")
+def _replicas(x, mesh) -> list:
+    """One copy of a replicated device argument a shard: a per-shard
+    sequence as it is, a tensor copied to each shard's device."""
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x.to(d) for d in mesh.devices]
+
+
+def generation_fitness_sharded(genomes, feats, mask, fwd_ret, fwd_valid,
+                               mesh,
+                               skeleton: Tuple[int, ...] =
+                               search.DEFAULT_SKELETON,
+                               group_num: int = 5,
+                               chunk: Optional[int] = None,
+                               n_elite: int = 2,
+                               n_pop: Optional[int] = None):
+    """Population-sharded generation over an in-process tickers mesh
+    (``parallel.resident_mesh(n, devices=[...])``): ``(stats [P_pad, 4],
+    top_vals [k], top_idx [k])`` on the mesh's first device, enqueued and
+    not waited for.
+
+    ``genomes [P_pad, L]`` (host) are cut into one contiguous block a
+    shard (``P_pad`` a multiple of the shard count; ``n_pop`` the logical
+    population, default ``P_pad``: pad rows at or past it are masked to
+    -inf before the top-k, so a pad genome is never selected). The device
+    arguments are replicated: a per-shard sequence (as
+    :meth:`.evolve.DiscoveryEngine.prepare` places them) or one tensor,
+    copied to each shard's device. Each shard runs
+    :func:`generation_stats` on its block; then every shard gathers the
+    stats and takes the same top-k. At the chunk of the shard's block,
+    each shard's stats are bitwise the single-device generation's rows.
+    """
+    from ..parallel.collectives import xs_population_topk_local
+    from ..parallel.mesh import TICKERS_AXIS
+
+    g = search._host_genomes(genomes)
+    n = mesh.shape[TICKERS_AXIS]
+    if len(g) % n:
+        raise ValueError(f"a population of {len(g)} does not divide over "
+                         f"{n} shards: pad it to a multiple")
+    n_pop = len(g) if n_pop is None else int(n_pop)
+    blk = len(g) // n
+
+    def body(view, g_local, f, m, fr, fv):
+        local = generation_stats(g_local, f, m, fr, fv, skeleton,
+                                 group_num, chunk)
+        return xs_population_topk_local(local, n_elite, n_pop,
+                                        axis_name=TICKERS_AXIS)
+
+    outs = mesh.run(body, [g[i * blk:(i + 1) * blk] for i in range(n)],
+                    *(_replicas(x, mesh)
+                      for x in (feats, mask, fwd_ret, fwd_valid)))
+    return outs[0]

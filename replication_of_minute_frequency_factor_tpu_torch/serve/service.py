@@ -48,12 +48,17 @@ its own future and bumps the breaker; it never carries on elsewhere.
 
 Placement: a fleet replica passes ``devices=`` (its group of devices,
 from ``fleet.replica.partition_devices``), and the server pins every
-launch, cache entry and stream carry to ``devices[0]``, as the JAX
-package's server pins its work to the submesh lead. ``health()`` names
-every device of the group. The placements that would spread one server
-over the others (``ServeConfig.stream_sharded``/``discover_sharded``)
-are not ported yet (ROADMAP Queue 1 item 7a) and refuse at construction
-when they would apply.
+launch, cache entry and block to ``devices[0]``, as the JAX package's
+server pins its work to the submesh lead. ``health()`` names every
+device of the group. Two placements spread one server over all of them,
+as in the JAX package: ``ServeConfig.stream_sharded`` places the stream
+carry over an in-process tickers mesh of the group
+(``parallel.resident_mesh(len(devices), devices)``; only with more than
+one device and a universe that divides over them), and
+``ServeConfig.discover_sharded`` shards discovery populations over one
+(only with more than one device). Otherwise each stays on ``devices[0]``,
+silently; the gauges ``stream.carry_sharded`` and ``discover.n_shards``
+say which one runs.
 """
 
 from __future__ import annotations
@@ -78,9 +83,6 @@ from .expcache import DeviceExposureCache
 _SENTINEL = None  # queue poison pill (requests are _Pending objects)
 
 QUERY_KINDS = ("factors", "ic", "decile", "intraday")
-
-_PLACEMENTS = "ROADMAP Queue 1 item 7a"
-
 
 def _fetch(x) -> np.ndarray:
     """The boundary: one device tensor fetched to host numpy (waits for
@@ -228,16 +230,16 @@ class ServeConfig:
     #: not an unbounded compute endpoint
     discover_max_generations: int = 64
     discover_max_pop: int = 8192
-    #: shard discovery populations over this server's devices: applied
-    #: only when the server has more than one device, otherwise the
-    #: engine runs on one, silently (the JAX package's contract). Not
-    #: ported yet: with several devices it refuses at construction
+    #: shard discovery populations over this server's devices (an
+    #: in-process mesh, ``parallel.resident_mesh``): applied only when the
+    #: server has more than one device, otherwise the engine runs on one,
+    #: silently (the ``discover.n_shards`` gauge says which ran)
     discover_sharded: bool = False
     #: place the streaming carry over a tickers mesh spanning this
     #: server's devices: applied only when the server has more than one
     #: device and the universe divides over them, otherwise the carry
-    #: stays on one, silently (``stream.carry_sharded`` reads 0). Not
-    #: ported yet: where it would apply it refuses at construction
+    #: stays on one, silently (``stream.carry_sharded`` reads 0, else
+    #: the shard count); snapshots are bitwise the unsharded engine's
     stream_sharded: bool = False
     #: front-door transport the CLI binds: ``edge`` is the
     #: evented selectors loop (:mod:`.edge` — keep-alive, pipelining,
@@ -318,8 +320,8 @@ class FactorServer:
         #: replica identity: the fleet builds N servers over groups of
         #: devices; ``replica_label`` names this one in health payloads /
         #: flight dumps and ``devices`` is its group, whose first device
-        #: it runs on (the others are there for the in-server placements,
-        #: not ported yet). A standalone server keeps both unset.
+        #: it runs on (the others serve the in-server placements). A
+        #: standalone server keeps both unset.
         self.replica_label = replica_label or "standalone"
         #: the one device every block, carry and query lives on (default
         #: the card; raises when none is present — never a quiet CPU
@@ -330,13 +332,14 @@ class FactorServer:
             tuple(_indexed(torch.device(d)) for d in devices)
             if devices else None)
         n_devices = len(self.devices or ())
-        if n_devices > 1 and (self.scfg.discover_sharded and research
-                              or self.scfg.stream_sharded and stream
-                              and source.n_tickers % n_devices == 0):
-            raise NotImplementedError(
-                "ServeConfig.stream_sharded/discover_sharded: a carry or "
-                "a population spread over a replica's devices is not "
-                f"ported yet ({_PLACEMENTS})")
+        #: the in-process meshes of the placements (None: one device);
+        #: built as the JAX package builds them, closed by close()
+        self._stream_mesh = self._research_mesh = None
+        if stream and self.scfg.stream_sharded and n_devices > 1 \
+                and source.n_tickers % n_devices == 0:
+            self._stream_mesh = self._mesh()
+        if research and self.scfg.discover_sharded and n_devices > 1:
+            self._research_mesh = self._mesh()
         #: the stream every launch of this server goes to: the one
         #: current on the constructor's thread, where the stream engine
         #: is built and warmed; the worker enters it too
@@ -362,19 +365,21 @@ class FactorServer:
         #: sharing THE executable cache (one build-count ground truth).
         #: Warmed at construction for the declared ingest micro-batch
         #: shapes, so steady-state ingest/intraday traffic builds
-        #: nothing. One card: the carry is never ticker-sharded
-        #: (``stream.carry_sharded`` reads 0).
+        #: nothing. ``stream.carry_sharded`` reads the carry's shard count
+        #: (0: on ``devices[0]`` alone).
         self.stream_engine = None
         if stream:
             from ..stream.engine import StreamEngine
-            self.telemetry.gauge("stream.carry_sharded", 0)
+            mesh = self._stream_mesh
+            self.telemetry.gauge("stream.carry_sharded",
+                                 0 if mesh is None else mesh.size)
             self.stream_engine = StreamEngine(
                 source.n_tickers, names=self.names,
                 replicate_quirks=replicate_quirks,
                 rolling_impl=rolling_impl, telemetry=self.telemetry,
                 executables=self.executables, session=self.session,
                 finalize_impl=self.scfg.stream_finalize_impl,
-                device=self.device)
+                mesh=mesh, device=None if mesh else self.device)
             self.stream_engine.warmup(micro_batches=stream_batches)
         #: the factor-discovery engine on this server's device, sharing
         #: THE executable cache. Built-in names are pinned here so
@@ -383,9 +388,12 @@ class FactorServer:
         self.research_engine = None
         if research:
             from ..research.evolve import DiscoveryEngine
+            mesh = self._research_mesh
             self.research_engine = DiscoveryEngine(
                 telemetry=self.telemetry, executables=self.executables,
-                device=self.device)
+                mesh=mesh, device=None if mesh else self.device)
+            self.telemetry.gauge("discover.n_shards",
+                                 self.research_engine.n_shards)
         self._builtin_names: Tuple[str, ...] = self.names
         #: a research server's discoveries survive the process: restart
         #: reloads every persisted ``disc_<hash>.json`` under
@@ -459,6 +467,11 @@ class FactorServer:
         torch.cuda.set_device(self.device)
         return torch.cuda.stream(self._cuda_stream)
 
+    def _mesh(self):
+        """An in-process tickers mesh over this server's devices."""
+        from ..parallel.mesh import resident_mesh
+        return resident_mesh(len(self.devices), devices=self.devices)
+
     # --- lifecycle ------------------------------------------------------
     def start(self) -> "FactorServer":
         if self._thread is None or not self._thread.is_alive():
@@ -479,6 +492,9 @@ class FactorServer:
         if self._thread is not None and self._thread.is_alive():
             self._q.put(_SENTINEL)
             self._thread.join(timeout)
+        for mesh in (self._stream_mesh, self._research_mesh):
+            if mesh is not None:
+                mesh.close()
         if self.scfg.hbm_sample_period_s > 0:
             self.telemetry.hbm.stop()
         if self.scfg.timeline_sample_period_s > 0:

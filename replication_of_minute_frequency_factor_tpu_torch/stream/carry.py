@@ -32,7 +32,7 @@ package saves restores into the other.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -124,10 +124,13 @@ def readiness(carry_inc, names: Sequence[str]):
 def finalize(carry, names: Optional[Tuple[str, ...]] = None,
              replicate_quirks: bool = True,
              rolling_impl: Optional[str] = None,
-             session=None) -> Dict[str, torch.Tensor]:
+             session=None, xs_axis_name: Optional[str] = None
+             ) -> Dict[str, torch.Tensor]:
     """Exposures of the partial day: ``{name: [T]}``, the batch kernels
     over the carried ``(bars, mask)`` prefix with the reorder-exact
-    accumulators (``n_bars``, ``last_close``) injected."""
+    accumulators (``n_bars``, ``last_close``) injected.
+    ``xs_axis_name``: the carry is one shard's ticker block of a mesh
+    (inside ``with mesh:``), and the ``doc_pdf*`` rank gathers over it."""
     if names is None:
         names = factor_names()
     inject = {"n_bars": carry["inc"]["bars"],
@@ -135,13 +138,14 @@ def finalize(carry, names: Optional[Tuple[str, ...]] = None,
     return compute_factors(carry["bars"], carry["mask"], names=names,
                            replicate_quirks=replicate_quirks,
                            rolling_impl=rolling_impl, inject=inject,
-                           session=session)
+                           session=session, xs_axis_name=xs_axis_name)
 
 
 def finalize_with_readiness(carry, names: Tuple[str, ...],
                             replicate_quirks: bool = True,
                             rolling_impl: Optional[str] = None,
-                            session=None, finalize_impl: str = "exact"):
+                            session=None, finalize_impl: str = "exact",
+                            xs_axis_name: Optional[str] = None):
     """The engine's snapshot: stacked exposures ``[F, T]`` and the
     readiness plane ``[F, T]``.
 
@@ -149,13 +153,14 @@ def finalize_with_readiness(carry, names: Tuple[str, ...],
     (O(day) a snapshot); ``'fast'`` materializes the foldable kernels from
     the carried statistics (``stream/fastpath.py``, O(F·T)) and runs only
     the ``batch_only`` residual over the prefix. Same layout and factor
-    order either way."""
+    order either way. ``xs_axis_name`` as :func:`finalize` (the fast
+    formulas are per lane and need no collective)."""
     if finalize_impl not in ("exact", "fast"):
         raise ValueError(f"unknown finalize_impl {finalize_impl!r} "
                          "(valid: 'exact', 'fast')")
     if finalize_impl == "exact":
         out = finalize(carry, names, replicate_quirks, rolling_impl,
-                       session=session)
+                       session=session, xs_axis_name=xs_axis_name)
         exposures = torch.stack([out[n] for n in names])
         return exposures, readiness(carry["inc"], names)
     from . import fastpath
@@ -167,7 +172,8 @@ def finalize_with_readiness(carry, names: Tuple[str, ...],
         vals.update({n: fast[i] for i, n in enumerate(fold)})
     if residual:
         vals.update(finalize(carry, residual, replicate_quirks,
-                             rolling_impl, session=session))
+                             rolling_impl, session=session,
+                             xs_axis_name=xs_axis_name))
     exposures = torch.stack([vals[n] for n in names])
     return exposures, readiness(carry["inc"], names)
 
@@ -280,6 +286,41 @@ def carry_to_device(host: Dict[str, object], device) -> Dict[str, object]:
     return {"bars": put(host["bars"]), "mask": put(host["mask"]),
             "t": int(host["t"]),
             "inc": {k: put(v) for k, v in host["inc"].items()}}
+
+
+def split_tickers(host: Dict[str, object], n_shards: int
+                  ) -> List[Dict[str, object]]:
+    """A host carry (:func:`init_carry`, :func:`carry_from_host`) as
+    ``n_shards`` host carries of contiguous ticker blocks, in shard order:
+    every leaf whose axis 0 is the ticker count is cut (views:
+    :func:`carry_to_device` copies), the rest (the cursor) is replicated.
+    The ticker count must divide."""
+    n_tickers = np.shape(host["mask"])[0]
+    if n_tickers % n_shards:
+        raise ValueError(f"{n_tickers} tickers do not divide over "
+                         f"{n_shards} shards")
+    blk = n_tickers // n_shards
+
+    def cut(a, i):
+        a = np.asarray(a)
+        if a.ndim and a.shape[0] == n_tickers:
+            return a[i * blk:(i + 1) * blk]
+        return a
+
+    return [{"bars": cut(host["bars"], i), "mask": cut(host["mask"], i),
+             "t": host["t"],
+             "inc": {k: cut(v, i) for k, v in host["inc"].items()}}
+            for i in range(n_shards)]
+
+
+def merge_tickers(snapshots: Sequence[Dict[str, np.ndarray]]
+                  ) -> Dict[str, np.ndarray]:
+    """Flat :func:`carry_to_host` snapshots of ticker blocks, in shard
+    order, as one flat snapshot of the whole universe: every leaf with a
+    ticker axis concatenated, the cursor taken from the first."""
+    return {k: (a if np.ndim(a) == 0
+                else np.concatenate([s[k] for s in snapshots]))
+            for k, a in snapshots[0].items()}
 
 
 def carry_nbytes(carry) -> int:

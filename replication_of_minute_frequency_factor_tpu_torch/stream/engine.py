@@ -24,6 +24,23 @@ Inputs arrive as host numpy and are copied to the engine's device once
 per call; outputs stay on the device (the caller fetches). Every
 snapshot that serves an ``mmt_ols_*`` factor launches the rolling
 second-moment kernel once, on ``[T, S]`` under the partial-day mask.
+
+With ``mesh`` (an in-process :class:`..parallel.local.LocalMesh`,
+``parallel.resident_mesh(n, devices=[...])``) the carry is placed over
+the mesh's tickers axis, as the JAX package places it with a
+``NamedSharding``: every carry leaf whose axis 0 is the ticker count is
+cut into contiguous blocks, one a shard, on the shard's device (the
+cursor, the only other leaf, is each shard's own host int). Each
+callable then runs on every shard's block at once (:meth:`LocalMesh.
+run`): an ingest on its tickers' columns, a cohort on the rows routed
+to it with local indices (the pad row dropped), a snapshot through
+``finalize_with_readiness(xs_axis_name=TICKERS_AXIS)``, whose only
+collective is the ``doc_pdf*`` whole-frame rank's gather, with the
+result wire's per-slice bounds and the stats sketch reduced over the
+shards. The snapshot's ``[F, T]`` planes and the payload are assembled
+on the mesh's first device in ticker order, bitwise the unsharded
+engine's; each snapshot serving an ``mmt_ols_*`` factor launches the
+kernel once a shard, on ``[T/n, S]``.
 """
 
 from __future__ import annotations
@@ -51,18 +68,28 @@ def scan_update(carry, bars_seq, present_seq, session=None):
 
 
 def _snapshot(carry, names, replicate_quirks, rolling_impl, session,
-              finalize_impl, result_spec=None, stats=False):
+              finalize_impl, result_spec=None, stats=False,
+              xs_axis_name=None):
     """One snapshot: ``(exposures or payload, ready[, stats])``. The stats
-    read the raw exposures before the encode."""
+    read the raw exposures before the encode. ``xs_axis_name``: the carry
+    is one shard's ticker block (inside ``with mesh:``), and the wire's
+    result is that block's :func:`..data.result_wire.encode_parts`."""
     exposures, ready = carry_mod.finalize_with_readiness(
         carry, names, replicate_quirks, rolling_impl, session=session,
-        finalize_impl=finalize_impl)
+        finalize_impl=finalize_impl, xs_axis_name=xs_axis_name)
     out = exposures
     if result_spec is not None:
-        out = result_wire.encode_block(exposures[:, None, :], result_spec)
+        block = exposures[:, None, :]
+        out = (result_wire.encode_block(block, result_spec)
+               if xs_axis_name is None else
+               result_wire.encode_parts(block, result_spec, xs_axis_name))
     if stats:
-        return out, ready, factor_stats_block(exposures)
+        return out, ready, factor_stats_block(exposures, xs_axis_name)
     return out, ready
+
+
+def _upload(a: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
 
 class StreamEngine:
@@ -71,8 +98,9 @@ class StreamEngine:
     ``executables`` is injectable so a server can share one cache (and one
     build count) between its engines; standalone use gets its own.
     ``device`` defaults to ``cuda`` and raises when no card is present;
-    pass ``device='cpu'`` to run on the CPU. ``mesh`` (a ticker-sharded
-    carry) is not ported.
+    pass ``device='cpu'`` to run on the CPU. ``mesh`` (an in-process
+    mesh, in place of ``device``) places the carry over its tickers
+    axis (module docstring); the universe must divide over its shards.
     """
 
     def __init__(self, n_tickers: int,
@@ -91,13 +119,24 @@ class StreamEngine:
         from ..telemetry import get_telemetry
         from . import fastpath
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamEngine(mesh=...): a ticker-sharded carry is a "
-                "placement inside one server process, not ported yet "
-                "(ROADMAP Queue 1 item 7a)")
-        self.device = resolve_device(device)
         self.n_tickers = int(n_tickers)
+        #: the in-process tickers mesh the carry is placed over, or None
+        self.mesh = mesh
+        #: the mesh axis a shard's finalize gathers the doc_pdf* rank over
+        self._xs_axis_name = None
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from ..parallel.local import lead_device
+            from ..parallel.mesh import TICKERS_AXIS
+            #: the lead device: where snapshots are assembled
+            self.device = lead_device(mesh, device, "StreamEngine")
+            t_shards = mesh.shape[TICKERS_AXIS]
+            if self.n_tickers % t_shards:
+                raise ValueError(
+                    f"n_tickers {self.n_tickers} does not divide over "
+                    f"{t_shards} ticker shards: pad the universe first")
+            self._xs_axis_name = TICKERS_AXIS
         #: the market session: sizes the day buffer ([T, S, 5]), bounds
         #: the minute cursor and sets the accumulators' window boundaries
         self.session = get_session(session)
@@ -140,9 +179,10 @@ class StreamEngine:
 
     # --- lifecycle ------------------------------------------------------
     def _graph_key(self):
+        place = str(self.device) if self.mesh is None else self.mesh.key()
         return (self.n_tickers, self.names, self.replicate_quirks,
                 self.rolling_impl, self.session.name,
-                self.finalize_impl_resolved, str(self.device))
+                self.finalize_impl_resolved, place)
 
     def cursor(self) -> dict:
         """Where this engine's carry stands, ``{"minute", "tickers",
@@ -158,28 +198,45 @@ class StreamEngine:
             return None
         return max(0.0, time.monotonic() - t)
 
+    def _put_carry(self, host) -> None:
+        """A host carry onto the engine's placement: one copy to the
+        device, or each shard's ticker block to its device (the carry is
+        then the list of the shards' carries)."""
+        if self.mesh is None:
+            self.carry = carry_mod.carry_to_device(host, self.device)
+            return
+        self.carry = self.mesh.run(
+            lambda view, h: carry_mod.carry_to_device(h, view.device),
+            carry_mod.split_tickers(host, self.mesh.size))
+
     def reset(self) -> "StreamEngine":
-        """A fresh empty-day carry (one host->device copy)."""
-        self.carry = carry_mod.carry_to_device(
-            carry_mod.init_carry(self.n_tickers, session=self.session),
-            self.device)
+        """A fresh empty-day carry (one host->device copy a shard)."""
+        self._put_carry(
+            carry_mod.init_carry(self.n_tickers, session=self.session))
         self.minutes = 0
         self._note_carry()
         return self
 
     def _note_carry(self) -> None:
         tel = self.telemetry
-        tel.gauge("stream.carry_bytes", carry_mod.carry_nbytes(self.carry))
+        shards = [self.carry] if self.mesh is None else self.carry
+        tel.gauge("stream.carry_bytes",
+                  sum(carry_mod.carry_nbytes(c) for c in shards))
         tel.gauge("stream.minute", self.minutes)
 
     def save(self) -> Dict[str, np.ndarray]:
         """Host copy of the carry (mid-day restart), in the JAX package's
-        snapshot format."""
-        return carry_mod.carry_to_host(self.carry)
+        snapshot format, the whole universe in ticker order under any
+        placement."""
+        if self.mesh is None:
+            return carry_mod.carry_to_host(self.carry)
+        return carry_mod.merge_tickers(self.mesh.run(
+            lambda view, c: carry_mod.carry_to_host(c), self.carry))
 
     def restore(self, snapshot: Dict[str, object]) -> "StreamEngine":
-        """Adopt a :meth:`save` snapshot (of either package); the
-        continued fold is bitwise the uninterrupted one."""
+        """Adopt a :meth:`save` snapshot (of either package, taken under
+        any placement); the continued fold is bitwise the uninterrupted
+        one."""
         host = carry_mod.carry_from_host(snapshot)
         if host["mask"].shape[0] != self.n_tickers:
             raise ValueError(
@@ -190,7 +247,7 @@ class StreamEngine:
                 f"snapshot holds a {host['mask'].shape[1]}-slot day "
                 f"buffer; engine runs session "
                 f"{self.session.name!r} ({self.session.n_slots} slots)")
-        self.carry = carry_mod.carry_to_device(host, self.device)
+        self._put_carry(host)
         self.minutes = int(snapshot["t"])
         self._note_carry()
         return self
@@ -225,7 +282,8 @@ class StreamEngine:
             replicate_quirks=self.replicate_quirks,
             rolling_impl=self.rolling_impl, session=self.session,
             finalize_impl=self.finalize_impl_resolved,
-            result_spec=result_spec, stats=stats)
+            result_spec=result_spec, stats=stats,
+            xs_axis_name=self._xs_axis_name)
 
     def _snapshot_exe(self, label: str, wire: bool, stats: bool):
         spec = self.result_spec if wire else None
@@ -266,13 +324,19 @@ class StreamEngine:
                 f"overruns the {self.session.n_slots}-slot "
                 f"{self.session.name} day")
         n_bars = int(present.sum())
-        bars_d = torch.from_numpy(
-            np.ascontiguousarray(bars, np.float32)).to(self.device)
-        present_d = torch.from_numpy(
-            np.ascontiguousarray(present, bool)).to(self.device)
         exe = self._exe("stream_update_scan", (b,), self._scan_fn())
         t0 = time.perf_counter()
-        self.carry = exe(self.carry, bars_d, present_d)
+        if self.mesh is None:
+            self.carry = exe(self.carry,
+                             _upload(bars, np.float32, self.device),
+                             _upload(present, bool, self.device))
+        else:
+            self.carry = self.mesh.run(
+                lambda view, c, bb, pp: exe(
+                    c, _upload(bb, np.float32, view.device),
+                    _upload(pp, bool, view.device)),
+                self.carry, np.split(bars, self.mesh.size, axis=1),
+                np.split(present, self.mesh.size, axis=1))
         tel = self.telemetry
         tel.observe("stream.update_seconds",
                     time.perf_counter() - t0, kind="scan")
@@ -305,12 +369,24 @@ class StreamEngine:
                 f"slot {self.session.name} day is full")
         k = len(idx)
         n_real = int((idx < self.n_tickers).sum())
-        rows_d = torch.from_numpy(
-            np.ascontiguousarray(rows, np.float32)).to(self.device)
-        idx_d = torch.from_numpy(idx.astype(np.int64)).to(self.device)
         exe = self._exe("stream_update_cohort", (k,), self._cohort_fn())
         t0 = time.perf_counter()
-        self.carry = exe(self.carry, rows_d, idx_d)
+        if self.mesh is None:
+            self.carry = exe(self.carry,
+                             _upload(rows, np.float32, self.device),
+                             _upload(idx, np.int64, self.device))
+        else:
+            # every shard takes all K rows: those of its tickers at their
+            # local index, the rest (and the pads) at its own pad index
+            blk = self.n_tickers // self.mesh.size
+            local = [np.where((idx >= i * blk) & (idx < (i + 1) * blk),
+                              idx - i * blk, blk)
+                     for i in range(self.mesh.size)]
+            self.carry = self.mesh.run(
+                lambda view, c, li: exe(
+                    c, _upload(rows, np.float32, view.device),
+                    _upload(li, np.int64, view.device)),
+                self.carry, local)
         tel = self.telemetry
         tel.observe("stream.update_seconds",
                     time.perf_counter() - t0, kind="cohort")
@@ -330,7 +406,9 @@ class StreamEngine:
                 f"advancing past the {self.session.n_slots}-slot "
                 f"{self.session.name} day")
         exe = self._exe("stream_advance", (), carry_mod.advance)
-        self.carry = exe(self.carry)
+        # the cursor is host state: no device work, on any placement
+        self.carry = (exe(self.carry) if self.mesh is None
+                      else [exe(c) for c in self.carry])
         self.telemetry.counter("stream.updates", kind="advance")
         self.minutes += 1
         self._note_carry()
@@ -339,7 +417,11 @@ class StreamEngine:
     def _snap(self, label: str, wire: bool, stats: bool):
         exe = self._snapshot_exe(label, wire, stats)
         t0 = time.perf_counter()
-        out = exe(self.carry)
+        if self.mesh is None:
+            out = exe(self.carry)
+        else:
+            out = self._assemble(self.mesh.run(lambda view, c: exe(c),
+                                               self.carry), wire, stats)
         tel = self.telemetry
         tel.observe("stream.snapshot_seconds", time.perf_counter() - t0)
         if wire:
@@ -350,6 +432,24 @@ class StreamEngine:
                     impl=self.finalize_impl_resolved)
         tel.hbm.sample("stream.snapshot")
         return out
+
+    def _assemble(self, outs, wire: bool, stats: bool):
+        """The shards' snapshot outputs as one on the lead device: the
+        ``[F, T]`` planes and the payload joined in ticker order, the
+        stats (the same on every shard) from the first."""
+        lead = self.device
+
+        def join(i):
+            return torch.cat([o[i].to(lead) for o in outs], dim=-1)
+
+        if wire:
+            first = result_wire.join_ticker_blocks(
+                [[t.to(lead) for t in o[0]] for o in outs])
+        else:
+            first = join(0)
+        if stats:
+            return first, join(1), outs[0][2].to(lead)
+        return first, join(1)
 
     def snapshot(self):
         """The partial day on the device: ``(exposures [F, T],

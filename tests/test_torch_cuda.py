@@ -944,3 +944,94 @@ def test_compute_mesh_tickers_2_on_the_card_matches_the_unsharded_cache(
         if x.dtype == np.float32:
             x, y = x.view(np.int32), y.view(np.int32)
         np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_sharded_generation_on_two_shards_of_the_card_launches_without_a_sync():
+    """The population sharded over ``[cuda:0, cuda:0]`` (two worker
+    threads, a stream each, on one card): a warm generation is enqueued
+    without one device wait (``set_sync_debug_mode("error")`` up to the
+    fetch), and its stats and top-k are bitwise the single-device
+    generation's at the matched chunk (the chunk divides a shard's
+    block, so both cut the population alike)."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch import search
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        resident_mesh)
+    from replication_of_minute_frequency_factor_tpu_torch.research import (
+        DiscoveryEngine)
+    slab = _discovery_slab()
+    card0 = torch.device("cuda", 0)
+    mesh = resident_mesh(2, devices=[card0, card0])
+    try:
+        sharded = DiscoveryEngine(telemetry=Telemetry(), mesh=mesh,
+                                  device_batch=8)
+        single = DiscoveryEngine(telemetry=Telemetry(), device="cuda",
+                                 device_batch=8)
+        pop = 64
+        n_elite = sharded._n_elite(pop, 0.1)
+        exes = {}
+        for label, eng in (("sharded", sharded), ("single", single)):
+            data = eng.prepare(*slab)
+            eng.warmup(data, pop)
+            exes[label] = (eng._generation_exe(data, pop, n_elite), data)
+        g = search.random_population(np.random.default_rng(3), pop)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = {k: exe(g, *data.device_args)
+                   for k, (exe, data) in exes.items()}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for a, b in zip(out["sharded"], out["single"]):
+            assert same_bits(a.cpu(), b.cpu())
+        res = sharded.evolve(exes["sharded"][1], pop=pop, generations=3,
+                             rng=np.random.default_rng(4))
+        assert res.n_shards == 2 and res.syncs_per_generation == 1.0
+        assert res.compiles_during_loop == 0
+    finally:
+        mesh.close()
+
+
+@pytest.mark.cuda
+def test_sharded_snapshot_on_two_shards_of_the_card_is_the_unsharded_bits():
+    """A 64-ticker day's carry over ``[cuda:0, cuda:0]``: the exact
+    snapshot, enqueued without a device wait, launches the tiled kernel
+    once a shard and is bitwise the unsharded engine's on the card, the
+    wire payload byte for byte."""
+    _card()
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        resident_mesh)
+    from replication_of_minute_frequency_factor_tpu_torch.stream import (
+        StreamEngine)
+    from torch_cases import feed, stream_day
+
+    bars, mask = stream_day(41, 64)
+    names = factor_names()
+    card0 = torch.device("cuda", 0)
+    mesh = resident_mesh(2, devices=[card0, card0])
+    try:
+        plain = StreamEngine(64, names=names, rolling_impl="cuda",
+                             device="cuda", telemetry=Telemetry())
+        sharded = StreamEngine(64, names=names, rolling_impl="cuda",
+                               mesh=mesh, telemetry=Telemetry())
+        for eng in (plain, sharded):
+            eng.warmup()
+            feed(eng, bars, mask, 0, 60, micro=16)
+        torch.cuda.synchronize()
+        before = dict(rolling_cuda.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, ready = sharded.snapshot()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert _launched(before) == {"tiled": 2, "rowwise": 0}
+        want, want_ready = plain.snapshot()
+        assert same_bits(got.cpu(), want.cpu())
+        assert torch.equal(ready.cpu(), want_ready.cpu())
+        pa, _, sa = plain.snapshot_wire_stats()
+        pb, _, sb = sharded.snapshot_wire_stats()
+        assert torch.equal(pa.cpu(), pb.cpu())
+        assert same_bits(sa.cpu(), sb.cpu())
+    finally:
+        mesh.close()

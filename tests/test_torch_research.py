@@ -353,13 +353,28 @@ def test_evolve_deterministic_under_explicit_rng():
     assert out[0].fingerprint == out[1].fingerprint
 
 
-def test_the_population_sharded_parts_wait_for_item_6():
+def test_the_population_sharded_parts_run_on_an_in_process_mesh():
     """Population-sharded discovery is a placement inside one server
-    process: after the fleet it is ROADMAP Queue 1 item 7a."""
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        DiscoveryEngine(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        PF.generation_fitness_sharded()
+    process: ``DiscoveryEngine(mesh=)`` and ``generation_fitness_sharded``
+    run on an in-process mesh (tests/test_torch_placements.py holds
+    them); a mesh that is not an in-process one is refused."""
+    from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+        resident_mesh)
+    bars, mask, fr, fv = _day_data(seed=2)
+    mesh = resident_mesh(2, devices=["cpu", "cpu"])
+    try:
+        eng = DiscoveryEngine(mesh=mesh, telemetry=Telemetry())
+        assert eng.n_shards == 2
+        data = eng.prepare(bars, mask, fr, fv)
+        g = P.random_population(np.random.default_rng(0), 6,
+                                P.DEFAULT_SKELETON)
+        stats, vals, idx = PF.generation_fitness_sharded(
+            g, *data.device_args, mesh, n_elite=3)
+        assert stats.shape == (6, 4) and vals.shape == idx.shape == (3,)
+    finally:
+        mesh.close()
+    with pytest.raises(TypeError, match="in-process mesh"):
+        DiscoveryEngine(mesh=object())
 
 
 # --------------------------------------------------------------------------

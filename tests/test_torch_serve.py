@@ -497,14 +497,15 @@ def test_health_carries_replica_identity_block():
 # --------------------------------------------------------------------------
 
 
-def test_unported_parts_refuse_at_construction():
+def test_a_device_list_server_runs_and_spreads_its_placements():
     """A device list builds a replica's server: it runs on the first
-    device and ``health()`` names them all. The placements that would
-    spread one server over the list's other devices are not ported:
-    they refuse loudly at construction where they would apply, naming
-    the ROADMAP item (the CPU refusal is tests/test_torch_purity.py's).
-    Discovery is ported: ``research=True`` builds a research server
-    (its behaviour is tests/test_torch_research.py's)."""
+    device and ``health()`` names them all. The placements spread one
+    server over the list's devices where they apply (several devices),
+    and stay on the first device otherwise, silently, as in the JAX
+    package (tests/test_torch_placements.py holds what they compute; the
+    CPU refusal is tests/test_torch_purity.py's). Discovery is ported:
+    ``research=True`` builds a research server (its behaviour is
+    tests/test_torch_research.py's)."""
     src = SyntheticSource(n_days=4, n_tickers=8, seed=3)
     with FactorServer(src, names=NAMES, research=True, device="cpu",
                       serve_cfg=ServeConfig(hbm_sample_period_s=0)) as srv:
@@ -524,11 +525,16 @@ def test_unported_parts_refuse_at_construction():
             np.asarray(b["exposures"][n]).tobytes()
     with pytest.raises(ValueError, match="different devices"):
         FactorServer(src, names=NAMES, devices=["cpu"], device="cuda:0")
-    for kw, flag in (({"stream": True}, "stream_sharded"),
-                     ({"research": True}, "discover_sharded")):
-        with pytest.raises(NotImplementedError, match="item 7a"):
-            FactorServer(src, names=NAMES, devices=["cpu", "cpu"],
-                         serve_cfg=ServeConfig(**{flag: True}), **kw)
+    for kw, flag, gauge in (
+            ({"stream": True}, "stream_sharded", "stream.carry_sharded"),
+            ({"research": True}, "discover_sharded", "discover.n_shards")):
+        tel = Telemetry()
+        with FactorServer(src, names=NAMES, devices=["cpu", "cpu"],
+                          start=False, telemetry=tel,
+                          serve_cfg=ServeConfig(**{flag: True,
+                                                   "hbm_sample_period_s": 0}),
+                          **kw):
+            assert tel.registry.gauge_value(gauge) == 2
         # one device: the knob does not apply, as in the JAX package
         with FactorServer(src, names=NAMES, devices=["cpu"], start=False,
                           serve_cfg=ServeConfig(**{flag: True,

@@ -40,6 +40,8 @@ from replication_of_minute_frequency_factor_tpu_torch.models import (
 from replication_of_minute_frequency_factor_tpu_torch.models.registry import (
     finalize_classes, stream_requirements)
 from replication_of_minute_frequency_factor_tpu_torch.ops import incremental
+from replication_of_minute_frequency_factor_tpu_torch.parallel import (
+    resident_mesh)
 from replication_of_minute_frequency_factor_tpu_torch.stream import (
     carry as sc)
 from replication_of_minute_frequency_factor_tpu_torch.stream.engine import (
@@ -428,8 +430,19 @@ def test_ticker_count_mismatch_and_bad_inputs_raise():
         with pytest.raises(ValueError, match="cohort indices"):
             eng.ingest_cohort(np.zeros((1, 5), np.float32),
                               np.array([bad], np.int32))
-    with pytest.raises(NotImplementedError, match="mesh.*item 7a"):
-        _engine(4, names=FAMILY[:1], mesh=object())
+    # a ticker-sharded carry runs (tests/test_torch_placements.py holds
+    # it); a mesh that is not an in-process one is refused
+    mesh = resident_mesh(2, devices=["cpu", "cpu"])
+    try:
+        sharded = StreamEngine(4, names=FAMILY[:1], mesh=mesh)
+        sharded.ingest_minutes(np.zeros((1, 4, 5), np.float32),
+                               np.ones((1, 4), bool))
+        exp, ready = sharded.snapshot()
+        assert exp.shape == ready.shape == (1, 4) and sharded.minutes == 1
+    finally:
+        mesh.close()
+    with pytest.raises(TypeError, match="in-process mesh"):
+        StreamEngine(4, names=FAMILY[:1], mesh=object())
     with pytest.raises(ValueError, match="finalize_impl"):
         _engine(4, names=FAMILY[:1], finalize_impl="warm")
 
