@@ -273,6 +273,27 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    --report -`` in a subprocess exits 0 against the committed baseline
    with this machine's torch. The 58 kernels' ATen ops and the phase's
    wall are printed.
+18. the host tools beside the device path, inside phase 8's temporary
+   directory right after 14c, each command a subprocess on Python 3.12
+   that must load nothing of JAX, the JAX package or ``tools``. 18a: the
+   port's ``telemetry.regress`` over the repo root (exit 0, one verdict
+   line), over tests/fixtures/regress_injected/ with ``--strict`` (exit
+   1, the injected regression flagged with its stage diff), and with
+   ``--telemetry`` over the ``metrics.jsonl`` that 13b's ``compute
+   --telemetry-dir`` wrote on the card (the ``io`` span counted once a
+   day, ``grid``, ``launch`` and ``device`` once a batch); the group
+   count and the folded spans are printed. 18b: ``compute --backend
+   polars`` over phase 8's first full-width day file with the stand-in
+   reference tree (tests/fixtures/refdiff_torch/, through
+   ``REFDIFF_REFERENCE_DIR`` and ``REFDIFF_ALLOW_UNPINNED=1`` in the
+   subprocess's environment only), held against ``--backend numpy`` on
+   the same file (rtol 1e-5 / atol 1e-7, the same NaN pattern) and
+   against phase 8's torch rows by the parity suite's comparator (its
+   doc_pdf acceptance sets rebuilt through the port's oracle); then the
+   harness's default tree: the audited reference's three ``cal_*`` held
+   against numpy when it is mounted, else the CLI failing before any day
+   (exit 1, ``FileNotFoundError``) with no cache. The polars backend's
+   seconds a day are printed as a host path's wall.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel and path (the tiled kernel on the host driver's batches, on the
@@ -336,7 +357,8 @@ def parity_tables():
     script must not."""
     want = {"RTOL", "ATOL", "RTOL_OVERRIDE", "NOISE_FACTORS", "NOISE_ATOL",
             "DEGENERATE_BETA_Z", "DEGENERATE_BETA_STD", "BETA_EPS_REL",
-            "DEGENERATE_KURT", "PDF_EDGE_EPS", "_PDF_THRESHOLDS"}
+            "DEGENERATE_KURT", "PDF_EDGE_EPS", "_PDF_THRESHOLDS",
+            "PDF_RANK_SLACK"}
     tree = ast.parse((REPO / "tests" / "test_parity.py").read_text())
     out = {}
     for node in tree.body:
@@ -1339,6 +1361,10 @@ def host_driver(names, tables, card: str) -> dict:
 
         # 14c. the CLI's compute --mesh-tickers 2 on some of these files
         mesh_driver(tmp, minute_dir, table, names, card)
+
+        # 18. regress (over 13b's telemetry too) and the polars backend
+        # on some of these files
+        regress_and_polars(tmp, minute_dir, table, tables, card)
     return launches
 
 
@@ -4407,6 +4433,303 @@ def count_diff(got: dict, want: dict) -> dict:
     return {op: (got.get(op, 0), want.get(op, 0))
             for op in sorted(set(got) | set(want))
             if got.get(op, 0) != want.get(op, 0)}
+
+
+#: phase 18: the stand-in reference tree's factors, and how many of phase
+#: 8's full-width day files the polars backend computes (about half a
+#: minute a day on the host: one keeps the phase inside the script's budget)
+POLARS_NAMES = ("vol_return1min", "mmt_pm", "doc_pdf60")
+POLARS_DAYS = 1
+STAND_IN_TREE = REPO / "tests" / "fixtures" / "refdiff_torch"
+REGRESS = "replication_of_minute_frequency_factor_tpu_torch.telemetry.regress"
+#: what no subprocess of phase 18 may load
+FOREIGN = ("jax", "jaxlib", "replication_of_minute_frequency_factor_tpu",
+           "tools")
+
+
+def run_module(module: str, argv, env=None, timeout: int = 600):
+    """``python -m module argv`` in a subprocess from the repo root, with
+    a check on the way out that it loaded nothing of ``FOREIGN``:
+    (exit code, stdout lines, stderr, seconds)."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}] + sys.argv[1:]\n"
+        "rc = 0\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code if isinstance(e.code, int) else 1\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FOREIGN!r})\n"
+        "if bad:\n"
+        "    print(f'FOREIGN MODULES {bad}', file=sys.stderr)\n"
+        "    rc = 99\n"
+        "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", code, *map(str, argv)],
+                       cwd=REPO, capture_output=True, text=True,
+                       env=env, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if "FOREIGN MODULES" in p.stderr:
+        fail(f"phase 18: {module} {argv} loaded "
+             f"{p.stderr.split('FOREIGN MODULES')[1].strip()[:200]}")
+    return p.returncode, p.stdout.splitlines(), p.stderr, secs
+
+
+def regress_verdict(argv, want_rc: int):
+    """The port's ``regress`` CLI in a subprocess: fails unless it exits
+    ``want_rc`` and prints exactly one JSON verdict line."""
+    rc, lines, err, secs = run_module(REGRESS, argv)
+    if rc != want_rc or len(lines) != 1:
+        fail(f"phase 18a: regress {argv} exited {rc} (want {want_rc}) with "
+             f"{len(lines)} stdout lines: {err[-600:]}")
+    return json.loads(lines[0]), secs
+
+
+def polars_env(tree):
+    """This process's environment for a polars-backend subprocess: with
+    ``tree`` the stand-in (``REFDIFF_REFERENCE_DIR`` and
+    ``REFDIFF_ALLOW_UNPINNED=1``), with None the harness's default tree
+    and its pins."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("REFDIFF_")}
+    if tree is not None:
+        env.update(REFDIFF_REFERENCE_DIR=str(tree),
+                   REFDIFF_ALLOW_UNPINNED="1")
+    return env
+
+
+def cache_rows(table, dates):
+    """``{name: {(code, date): value}}`` of ``table``'s rows on ``dates``."""
+    d = np.asarray(table.columns["date"]).astype("datetime64[D]").astype(str)
+    sel = np.isin(d, list(dates))
+    codes = np.asarray(table.columns["code"]).astype(str)[sel]
+    keys = list(zip(codes, d[sel]))
+    return {n: dict(zip(keys, np.asarray(table.columns[n], np.float64)[sel]))
+            for n in table.factor_names}
+
+
+def pdf_acceptance(path: Path, threshold: float, eps: float):
+    """tests/test_parity.py's doc_pdf acceptance sets for one day file,
+    through the port's oracle: ``{code: values}`` of the crossing re-read
+    at the threshold and ``eps`` either side, with the end-of-day returns
+    in f64 and quantized to f32 before the whole-frame rank."""
+    from replication_of_minute_frequency_factor_tpu_torch.data import io
+    from replication_of_minute_frequency_factor_tpu_torch.oracle.kernels import (  # noqa: E501
+        Group, _doc_pdf)
+    from replication_of_minute_frequency_factor_tpu_torch.oracle.stats import (
+        rank_average)
+
+    day = io.read_minute_day(str(path))
+    order = np.lexsort((day["time"], day["code"]))
+    code = np.asarray(day["code"]).astype(str)[order]
+    cols = {k: np.asarray(day[k], np.float64)[order]
+            for k in ("open", "high", "low", "close", "volume")}
+    time_ = np.asarray(day["time"], np.int64)[order]
+    starts = np.r_[0, np.flatnonzero(code[1:] != code[:-1]) + 1, len(code)]
+    out = {}
+    for quantize in (False, True):
+        c = cols["close"]
+        if quantize:
+            c = c.astype(np.float32).astype(np.float64)
+        eod = np.empty(len(c))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for b0, b1 in zip(starts[:-1], starts[1:]):
+                eod[b0:b1] = c[b1 - 1] / c[b0:b1]
+        if quantize:
+            eod = eod.astype(np.float32).astype(np.float64)
+        grank = rank_average(eod)
+        for b0, b1 in zip(starts[:-1], starts[1:]):
+            g = Group(time=time_[b0:b1],
+                      **{k: v[b0:b1] for k, v in cols.items()},
+                      grank=grank[b0:b1])
+            acc = out.setdefault(code[b0], set())
+            for t in (threshold - eps, threshold, threshold + eps):
+                v = _doc_pdf(g, t)
+                if np.isfinite(v):
+                    acc.add(float(v))
+    return out
+
+
+def hold_polars_to_torch(ref: dict, got: dict, files, tables) -> dict:
+    """The polars rows (``ref``, the reference's own code in f64) against
+    phase 8's torch rows (``got``) on the same (code, date) keys, by
+    tests/test_parity.py's comparator: NaN positions equal, values within
+    ``RTOL``/``ATOL`` (``doc_pdf*`` with ``PDF_RANK_SLACK``, and past it
+    any member of the day's acceptance set). Returns {name: lanes held}."""
+    out = {}
+    for name in POLARS_NAMES:
+        r, g = ref[name], got[name]
+        if set(r) != set(g):
+            fail(f"phase 18b {name}: polars and torch rows hold different "
+                 f"(code, date) keys ({len(set(r) ^ set(g))} apart)")
+        keys = sorted(r)
+        a = np.array([g[k] for k in keys])
+        b = np.array([r[k] for k in keys])
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            fail(f"phase 18b {name}: NaN positions differ from phase 8's "
+                 f"torch rows ({int((np.isnan(a) != np.isnan(b)).sum())})")
+        rtol = tables["RTOL_OVERRIDE"].get(name, tables["RTOL"]["default"])
+        atol = tables["ATOL"].get(name, tables["ATOL"]["default"])
+        pdf = name in tables["_PDF_THRESHOLDS"]
+        if pdf:
+            atol = max(atol, tables["PDF_RANK_SLACK"])
+        fin = np.isfinite(b)
+        bad = fin & ~np.isclose(a, b, rtol=rtol, atol=atol)
+        if bad.any() and pdf:
+            by_date = {}
+            for j in np.flatnonzero(bad):
+                by_date.setdefault(keys[j][1], []).append(j)
+            for date, js in by_date.items():
+                acc = pdf_acceptance(files[date],
+                                     tables["_PDF_THRESHOLDS"][name],
+                                     tables["PDF_EDGE_EPS"])
+                for j in js:
+                    if any(np.isclose(a[j], v, rtol=rtol, atol=atol)
+                           for v in acc.get(keys[j][0], ())):
+                        bad[j] = False
+        if bad.any():
+            j = np.flatnonzero(bad)[0]
+            fail(f"phase 18b {name}: {int(bad.sum())} of phase 8's torch "
+                 f"values out of the parity tolerance against the polars "
+                 f"backend (first {keys[j]}: {a[j]!r} vs {b[j]!r})")
+        out[name] = int(fin.sum())
+    return out
+
+
+def regress_and_polars(tmp: Path, minute_dir: Path, table, tables,
+                       card: str) -> None:
+    """Phase 18, inside phase 8's temporary directory after 13b and 14c;
+    see the module docstring."""
+    from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
+        ExposureTable)
+    from replication_of_minute_frequency_factor_tpu_torch.refdiff import (
+        harness)
+
+    t_phase = time.perf_counter()
+    if sys.version_info[:2] != (3, 12):
+        fail(f"phase 18 runs its subprocesses on Python 3.12, not "
+             f"{sys.version.split()[0]}")
+    # 18a. regress over the repo, the injected fixture, and 13b's spans
+    verdict, secs = regress_verdict([REPO], 0)
+    log(f"phase 18a regress {REPO.name}/: exit 0, one verdict line: "
+        f"{verdict['records']} records in {verdict['series']} series, "
+        f"{len(verdict['groups'])} groups gated, flagged "
+        f"{[f['metric'] for f in verdict['flagged']]}; {secs:.2f} s "
+        "(subprocess, host)")
+    verdict, _ = regress_verdict(
+        [REPO / "tests" / "fixtures" / "regress_injected", "--strict"], 1)
+    (g,) = verdict["groups"]
+    top = g.get("stage_diff", [{}])[0]
+    if verdict["ok"] or not g["flagged"] or g["metric"] != "toy_wall" \
+            or top.get("stage") != "compute":
+        fail(f"phase 18a: the injected regression was not flagged with its "
+             f"stage diff: {json.dumps(verdict)[:400]}")
+    log(f"phase 18a regress regress_injected/ --strict: exit 1, "
+        f"{verdict['series']} series, {g['metric']} flagged at "
+        f"{g['deviation_pct']:+.1f}% of its baseline; stage diff first row "
+        f"{json.dumps(top)}")
+    verdict, _ = regress_verdict([REPO, "--telemetry", tmp / "tel13"], 0)
+    spans = verdict["telemetry"]["spans"]
+    n_batches = -(-PROFILED_DAYS // DAYS_PER_BATCH)
+    want = {"io": PROFILED_DAYS, "grid": n_batches, "launch": n_batches,
+            "device": n_batches}
+    got = {k: (spans.get(k) or {}).get("count") for k in want}
+    if verdict["telemetry"]["files"] != 1 or got != want:
+        fail(f"phase 18a: --telemetry over 13b's metrics.jsonl folded "
+             f"{got}, expected {want} ({sorted(spans)})")
+    log(f"phase 18a regress --telemetry tel13/ (13b's compute on {card}): "
+        f"{len(verdict['groups'])} groups, {len(spans)} spans folded: "
+        + ", ".join(f"{k} count {v['count']} sum {v['sum_s']:.4f} s"
+                    for k, v in sorted(spans.items())))
+
+    # 18b. compute --backend polars over phase 8's first day file(s)
+    files = sorted(minute_dir.glob("*.parquet"))[:POLARS_DAYS]
+    days = tmp / "kline18"
+    days.mkdir()
+    for f in files:
+        (days / f.name).symlink_to(f)
+    dates = [f"{f.stem[:4]}-{f.stem[4:6]}-{f.stem[6:8]}" for f in files]
+    argv = ["compute", "--minute-dir", days, "--factors",
+            ",".join(POLARS_NAMES), "--quiet"]
+    cache_pl, tel18 = tmp / "polars18.parquet", tmp / "tel18"
+    rc, lines, err, secs = run_module(
+        "replication_of_minute_frequency_factor_tpu_torch",
+        argv + ["--backend", "polars", "--cache", cache_pl,
+                "--telemetry-dir", tel18], env=polars_env(STAND_IN_TREE))
+    out = json.loads(lines[-1]) if rc == 0 and lines else None
+    if out is None or out["days"] != POLARS_DAYS or out["failed_days"]:
+        fail(f"phase 18b: compute --backend polars gave {rc}, {out}: "
+             f"{err[-800:]}")
+    with open(tel18 / "attribution.json") as fh:
+        wall = json.load(fh)["reconciliation"]["wall_s"]
+    rc, np_out, secs_np = run_cli(
+        [str(a) for a in argv]
+        + ["--backend", "numpy", "--cache", str(tmp / "numpy18.parquet")])
+    if rc != 0 or np_out["rows"] != out["rows"]:
+        fail(f"phase 18b: compute --backend numpy gave {rc}, {np_out}")
+    t_pl = ExposureTable.load(str(cache_pl))
+    t_np = ExposureTable.load(str(tmp / "numpy18.parquet"))
+    for k in ("code", "date"):
+        if not np.array_equal(np.asarray(t_pl.columns[k]).astype(str),
+                              np.asarray(t_np.columns[k]).astype(str)):
+            fail(f"phase 18b: the polars and numpy caches' {k} differ")
+    for n in POLARS_NAMES:
+        a, b = t_pl.columns[n], t_np.columns[n]
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            fail(f"phase 18b {n}: NaN pattern differs from --backend numpy")
+        f_ = ~np.isnan(a)
+        if not np.allclose(a[f_], b[f_], rtol=1e-5, atol=1e-7):
+            fail(f"phase 18b {n}: polars and numpy differ past rtol 1e-5 / "
+                 "atol 1e-7")
+    held = hold_polars_to_torch(
+        cache_rows(t_pl, dates), cache_rows(table, dates),
+        dict(zip(dates, files)), tables)
+    log(f"phase 18b compute --backend polars on the stand-in tree "
+        f"(REFDIFF_REFERENCE_DIR={STAND_IN_TREE.relative_to(REPO)}, "
+        f"REFDIFF_ALLOW_UNPINNED=1 in the subprocess only) over "
+        f"{POLARS_DAYS} of phase 8's day files ({TICKERS} tickers): "
+        f"{out['rows']} rows x {len(POLARS_NAMES)} factors; equal to "
+        f"--backend numpy at rtol 1e-5 / atol 1e-7 with the same NaN "
+        f"pattern, and to phase 8's torch rows at the parity tolerances "
+        f"(finite lanes held: {held})")
+    log(f"phase 18b polars backend wall (host path, no device work; {card}): "
+        f"{wall:.3f} s in compute_exposures, {wall / POLARS_DAYS:.3f} s a "
+        f"day at {TICKERS} tickers; {secs:.3f} s for the whole subprocess "
+        f"(interpreter start-up included); --backend numpy {secs_np:.3f} s "
+        "in process")
+
+    # the harness's default tree: the audited reference when mounted,
+    # else the CLI fails before any day and writes no cache
+    default = Path(harness.REFERENCE_DIR)
+    cache_ref = tmp / "reference18.parquet"
+    rc, lines, err, _ = run_module(
+        "replication_of_minute_frequency_factor_tpu_torch",
+        argv + ["--backend", "polars", "--cache", cache_ref],
+        env=polars_env(None))
+    if (default / harness._KERNELS).exists():
+        if rc != 0:
+            fail(f"phase 18b: the audited tree at {default} did not run: "
+                 f"{err[-800:]}")
+        t_ref = ExposureTable.load(str(cache_ref))
+        for n in POLARS_NAMES:
+            a, b = t_ref.columns[n], t_np.columns[n]
+            f_ = ~np.isnan(a)
+            if not np.array_equal(np.isnan(a), np.isnan(b)) or not \
+                    np.allclose(a[f_], b[f_], rtol=1e-5, atol=1e-7):
+                fail(f"phase 18b {n}: the audited reference differs from "
+                     "--backend numpy")
+        ran = ["stand-in", f"audited ({default})"]
+    else:
+        if rc != 1 or "FileNotFoundError" not in err or cache_ref.exists():
+            fail(f"phase 18b: with no tree at {default} the CLI gave {rc} "
+                 f"(cache written: {cache_ref.exists()}): {err[-400:]}")
+        ran = ["stand-in"]
+        log(f"phase 18b no reference tree at the default {default}: "
+            "compute --backend polars exited 1 with FileNotFoundError before "
+            "any day, no cache written (as the JAX CLI does)")
+    log(f"phase 18 trees run: {ran}; wall {time.perf_counter() - t_phase:.1f}"
+        f" s ({card})")
 
 
 def trace_tier_path(tables, card: str) -> dict:

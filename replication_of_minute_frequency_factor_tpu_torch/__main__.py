@@ -43,8 +43,12 @@ it, both raise):
         --telemetry-dir out/ --profile-dir out/prof/
 
 ``compute --profile-dir DIR`` captures a trace of the run;
-``compute --backend numpy`` runs the f64 oracle on the host
-(``--backend polars`` exits 2: its harness imports the JAX package).
+``compute --backend numpy`` runs the f64 oracle on the host;
+``compute --backend polars`` runs the reference's own ``cal_*`` code
+(the hash-pinned tree at ``REFDIFF_REFERENCE_DIR``) on real polars or
+the port's audited shim (``refdiff/``), on the host, with no repo
+checkout needed; with no reference tree it fails before reading a day
+and creates no cache.
 ``compute --mesh-tickers N`` shards the tickers axis over N ranks: the
 command spawns them itself (each on ``cuda:{rank % device_count}``, NCCL
 when every rank has a card of its own, else gloo), or joins the group it
@@ -110,8 +114,8 @@ def _add_compute(sub: "argparse._SubParsersAction") -> None:
     p.add_argument("--backend", choices=("torch", "numpy", "polars"),
                    default=None,
                    help="execution backend: torch (the device pipeline), "
-                        "numpy (the f64 oracle on the host); polars is "
-                        "not ported and exits 2")
+                        "numpy (f64 oracle), polars (the reference's own "
+                        "kernels; slow, differential use)")
     p.add_argument("--rolling-impl", choices=("cuda", "torch"),
                    default=None,
                    help="mmt_ols_* rolling backend: cuda (the hand-written "
@@ -441,10 +445,6 @@ def cmd_compute(args: argparse.Namespace) -> int:
     cfg = Config.from_env()  # honor MFF_* like every other entry point
     if args.backend is not None:
         cfg.backend = args.backend
-    if cfg.backend == "polars":
-        from .pipeline import POLARS_REFUSAL
-        print(POLARS_REFUSAL, file=sys.stderr)
-        return 2
     if args.days_per_batch is not None:
         cfg.days_per_batch = args.days_per_batch
     if args.no_wire:

@@ -29,9 +29,8 @@ class Config:
 
     # --- execution ---
     #: 'torch' (the device pipeline), 'numpy' (the polars-semantics f64
-    #: oracle on the host, oracle/), or 'polars' (refused: the reference
-    #: harness that runs the reference's own kernels imports the JAX
-    #: package)
+    #: oracle on the host, oracle/), or 'polars' (the reference's own
+    #: kernels on the host, refdiff/)
     backend: str = "torch"
     #: how many trading days to batch into one device step
     days_per_batch: int = 8

@@ -1210,14 +1210,8 @@ def _mesh_worker(mesh) -> None:
 
 
 #: ``Config.backend`` values: the device pipeline, the host oracle, and
-#: the reference's own kernels (refused, :data:`POLARS_REFUSAL`)
+#: the reference's own kernels on the host (:mod:`.refdiff`)
 BACKENDS = ("torch", "numpy", "polars")
-
-POLARS_REFUSAL = (
-    "backend='polars' is not ported: it runs the reference's own kernels "
-    "through tools/refdiff, whose harness imports the JAX package, and "
-    "the port imports none of it (ROADMAP Queue 1 item 7c); "
-    "backend='numpy' runs the f64 oracle")
 
 
 def _run_oracle(batches, names, parts: List[ExposureTable]) -> None:
@@ -1240,6 +1234,45 @@ def _run_oracle(batches, names, parts: List[ExposureTable]) -> None:
             for n in names:
                 cols[n] = wide[n].to_numpy(np.float32)
             parts.append(ExposureTable(cols))
+
+
+def _reference_polars_rows(day: Dict[str, np.ndarray], date,
+                           names: Sequence[str]) -> Dict[str, np.ndarray]:
+    """One day through the reference's ACTUAL cal_* code (polars or the
+    audited shim), widened to the day's full code list with NaN for
+    absent groups — the same wide contract as the oracle path."""
+    from .refdiff import harness
+
+    ref = harness.run_reference(dict(day), names=list(names))
+    codes = np.unique(np.asarray(day["code"]).astype(str))
+    cols: Dict[str, np.ndarray] = {
+        "code": codes.astype(object),
+        "date": np.full(len(codes), date, "datetime64[D]"),
+    }
+    for n in names:
+        vals = ref.get(n, {})
+        cols[n] = np.asarray([vals.get(str(c), np.nan) for c in codes],
+                             np.float32)
+    return cols
+
+
+def _run_reference_polars(batches, names, parts: List[ExposureTable],
+                          failures: FailureReport, path_of: dict) -> None:
+    """The polars backend: the reference's own ``cal_*`` expression graphs
+    (:mod:`.refdiff`; real polars when installed, else the audited shim)
+    over each day on the host, one table part a day. Slow and
+    single-threaded — a correctness/differential backend, not a
+    production one. It executes foreign code, so a day whose kernels
+    raise is isolated into ``failures`` as in the device pipeline."""
+    for batch in batches:
+        for date, d in batch:
+            try:
+                parts.append(ExposureTable(
+                    _reference_polars_rows(d, date, names)))
+            except Exception as e:  # noqa: BLE001 — per-day isolation
+                failures.record(str(date), path_of.get(str(date), ""), e)
+                logger.warning("skipping day %s (polars backend): %s",
+                               date, e)
 
 
 def _topup_missing_factors(cached, missing, all_files, minute_dir,
@@ -1346,7 +1379,10 @@ def compute_exposures(
       whose Chrome trace lands in that directory;
     * ``cfg.backend`` picks the path: ``'torch'`` the device pipeline,
       ``'numpy'`` the f64 oracle (:mod:`.oracle`) over each day on the
-      host (no card needed), ``'polars'`` raises NotImplementedError;
+      host (no card needed), ``'polars'`` the reference's own ``cal_*``
+      code (:mod:`.refdiff`, hash-pinned; no card and no repo checkout
+      needed) over each day on the host — a missing or unpinned
+      reference tree raises before any day is read;
     * ``cfg.mesh_shape = (1, n)`` shards the device pipeline's tickers
       axis over ``n`` ranks (:func:`_run_device_pipeline` with a mesh,
       the same retry and isolation); a days axis of
@@ -1455,8 +1491,6 @@ def _compute_exposures(
         # numpy-vs-device differential would then vacuously pass
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{cfg.backend!r}")
-    if cfg.backend == "polars":
-        raise NotImplementedError(POLARS_REFUSAL)
     if cfg.backend != "torch" and not cfg.replicate_quirks:
         # the oracle can only produce the quirked values; caching them as
         # 'fixed' would poison a later fixed-quirks comparison
@@ -1539,8 +1573,9 @@ def _compute_exposures(
 
     t0 = time.perf_counter()
     # the device pipeline keeps integer codes integer through the grid
-    # (normalized once at the batch axis, _grid_batch); the oracle joins
-    # on code STRINGS and needs the normalizing reader
+    # (normalized once at the batch axis, _grid_batch); the oracle and
+    # polars backends hand day columns to code that joins on code
+    # STRINGS and need the normalizing reader
     reader = (dio.read_minute_day_raw if cfg.backend == "torch"
               else dio.read_minute_day)
 
@@ -1570,6 +1605,15 @@ def _compute_exposures(
     def dispatch_backend():
         if cfg.backend == "numpy":
             _run_oracle(read_batches(), names, parts)
+        elif cfg.backend == "polars":
+            # resolve the harness and the reference module ONCE, before
+            # the day loop: a missing or unpinned reference tree is a
+            # setup error that must raise, not be recorded N times as
+            # per-day failures yielding a vacuous empty success
+            from .refdiff import harness
+            harness.load_reference_kernels()
+            _run_reference_polars(read_batches(), names, parts, failures,
+                                  {str(d): p for d, p in files})
         else:
             _run_device_pipeline(read_batches(), names, cfg, timer, parts,
                                  failures=failures,

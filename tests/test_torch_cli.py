@@ -11,7 +11,8 @@ the runtime and exits 1 without a card; the flags of slices not yet ported
 (and the JAX package's own, such as ``analyze --tier jaxpr``) are rejected
 by argparse; ``analyze`` exits 0 on the repo and 1 with the fixtures'
 findings, as the JAX CLI's does. ``compute --backend numpy`` gives the JAX CLI's
-numbers bitwise, ``--backend polars`` exits 2 with its reason, and
+numbers bitwise, ``--backend polars`` with no reference tree fails as
+the JAX CLI does (before any day, no cache), and
 ``compute --profile-dir``/the bare ``--telemetry-dir --profile-dir`` demo
 leave a trace whose summary the attribution report embeds.
 """
@@ -269,12 +270,29 @@ def test_compute_mesh_tickers_matches_the_jax_cli(workspace, capsys):
                     + extra + ["--device", "cpu"]) == 2
 
 
-def test_compute_backend_polars_exits_2_with_the_reason(workspace, capsys):
-    kline, _pv, cache, _tmp = workspace
-    assert main(["compute", "--minute-dir", kline, "--cache", cache,
-                 "--backend", "polars", "--device", "cpu"]) == 2
-    assert "imports the JAX package" in capsys.readouterr().err
-    assert not os.path.exists(cache)
+def test_compute_backend_polars_exits_2_with_the_reason(workspace,
+                                                       monkeypatch):
+    """``--backend polars`` runs now (tests/test_torch_refdiff.py holds its
+    output); with no reference tree it fails as the JAX CLI does: the
+    harness's FileNotFoundError naming the missing file propagates out of
+    ``main`` (exit 1 with its traceback as a command), before any day is
+    read, and neither CLI writes a cache."""
+    from replication_of_minute_frequency_factor_tpu_torch.refdiff import (
+        harness)
+    from tools.refdiff import harness as jax_harness
+
+    kline, _pv, cache, tmp = workspace
+    for h in (harness, jax_harness):
+        monkeypatch.setattr(h, "REFERENCE_DIR",
+                            os.path.join(str(tmp), "no_tree"))
+        monkeypatch.setattr(h, "_ref_kernels_mod", None)
+    argv = ["compute", "--minute-dir", kline, "--backend", "polars"]
+    with pytest.raises(FileNotFoundError, match="no_tree") as port:
+        main(argv + ["--cache", cache, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="no_tree") as ref:
+        jax_main(argv + ["--cache", cache + ".jax"])
+    assert str(port.value) == str(ref.value)
+    assert not os.path.exists(cache) and not os.path.exists(cache + ".jax")
 
 
 def test_compute_profile_dir_writes_a_trace_the_report_reads(workspace,

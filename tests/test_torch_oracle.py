@@ -7,8 +7,11 @@ driver's ``backend='numpy'`` runs it over each day file: the same table
 as the JAX package's ``backend='numpy'`` on the same files, bit for bit,
 and within tests/test_parity.py's comparator of the port's device path
 (``backend='torch'``, the oracle in the reference's place).
-``backend='polars'`` is refused with its reason.
+``backend='polars'`` with no reference tree raises what the JAX
+package's raises, before any day.
 """
+
+import os
 
 import numpy as np
 import pandas as pd
@@ -138,11 +141,32 @@ def test_numpy_backend_caches_and_resumes(minute_dir, tmp_path):  # noqa: F811
     assert "io" not in again.timings  # nothing new to read
 
 
-def test_polars_backend_raises_naming_the_reason(minute_dir):  # noqa: F811
-    with pytest.raises(NotImplementedError,
-                       match="imports the JAX package"):
-        pl.compute_exposures(minute_dir, cfg=_cfg(backend="polars"),
-                             progress=False, device="cpu")
+def test_polars_backend_raises_naming_the_reason(minute_dir, tmp_path,
+                                                 monkeypatch):  # noqa: F811
+    """``backend='polars'`` runs now (tests/test_torch_refdiff.py holds its
+    output); with no reference tree it raises what the JAX package raises,
+    the harness's FileNotFoundError naming the missing file, before any
+    day is read, and writes no cache."""
+    from replication_of_minute_frequency_factor_tpu_torch.refdiff import (
+        harness)
+    from tools.refdiff import harness as jax_harness
+
+    for h in (harness, jax_harness):
+        monkeypatch.setattr(h, "REFERENCE_DIR", str(tmp_path / "no_tree"))
+        monkeypatch.setattr(h, "_ref_kernels_mod", None)
+    errors, seen = [], []
+    for run in (lambda c: pl.compute_exposures(
+                    minute_dir, cfg=_cfg(backend="polars"), cache_path=c,
+                    progress=False, device="cpu", fault_hook=seen.append),
+                lambda c: jax_compute_exposures(
+                    minute_dir, cfg=JConfig(backend="polars"),
+                    cache_path=c, progress=False, fault_hook=seen.append)):
+        cache = str(tmp_path / f"cache{len(errors)}.parquet")
+        with pytest.raises(FileNotFoundError, match="no_tree") as exc:
+            run(cache)
+        errors.append(str(exc.value))
+        assert not os.path.exists(cache)
+    assert errors[0] == errors[1] and seen == []
 
 
 def test_unknown_backend_and_fixed_quirks_off_device_raise(

@@ -4,6 +4,7 @@ kernel wrapper takes its plain version only for CPU tensors."""
 
 import ast
 import importlib
+import os
 import pkgutil
 import subprocess
 import sys
@@ -20,7 +21,8 @@ from replication_of_minute_frequency_factor_tpu_torch.ops import rolling_cuda
 
 PORT_DIR = Path(port.__file__).parent
 REPO = PORT_DIR.parent
-FORBIDDEN = ("jax", "jaxlib", "replication_of_minute_frequency_factor_tpu")
+FORBIDDEN = ("jax", "jaxlib", "replication_of_minute_frequency_factor_tpu",
+             "tools")
 
 
 def _forbidden(module: str) -> bool:
@@ -81,7 +83,9 @@ def test_importing_every_port_module_loads_no_jax():
                 "parallel.mesh", "parallel.collectives",
                 "parallel.transport", "parallel.multihost",
                 "parallel.launch", "fleet", "fleet.replica",
-                "fleet.policy", "fleet.router", "fleet.http"):
+                "fleet.policy", "fleet.router", "fleet.http", "refdiff",
+                "refdiff.harness", "refdiff.polars_shim",
+                "telemetry.regress"):
         assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
     # pyarrow loads only inside the functions that read and write files,
@@ -303,6 +307,54 @@ def test_discovery_modules_load_no_jax():
         assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
     assert "pyarrow" not in out
+
+
+def test_refdiff_and_regress_load_neither_jax_nor_tools(tmp_path):
+    """``telemetry.regress`` over the repo's bench records and the polars
+    backend over a day on the stand-in reference tree, run in a fresh
+    process with no ``tools`` on its path: neither loads jax, the JAX
+    package or any module named ``tools``, and the backend executes the
+    port's harness and shim."""
+    code = (
+        "import os, sys\n"
+        "sys.path = [p for p in sys.path if p not in ('', os.getcwd())]\n"
+        "sys.path.insert(0, os.environ['PORT_PARENT'])\n"
+        "import numpy as np, pyarrow as pa, pyarrow.parquet as pq\n"
+        "from replication_of_minute_frequency_factor_tpu_torch.telemetry "
+        "import regress\n"
+        "assert regress.main([os.environ['PORT_PARENT'], '--out', "
+        "os.devnull]) == 0\n"
+        "from replication_of_minute_frequency_factor_tpu_torch import "
+        "pipeline\n"
+        "from replication_of_minute_frequency_factor_tpu_torch.config "
+        "import Config\n"
+        "from replication_of_minute_frequency_factor_tpu_torch.data import "
+        "synth_day\n"
+        "d = synth_day(np.random.default_rng(0), n_codes=4, "
+        "date='2024-01-02')\n"
+        "k = os.path.join(os.environ['WORK'], 'kline')\n"
+        "os.makedirs(k)\n"
+        "pq.write_table(pa.table({c: pa.array(d[c]) for c in ('code', "
+        "'time', 'open', 'high', 'low', 'close', 'volume')}), "
+        "os.path.join(k, '20240102.parquet'))\n"
+        "t = pipeline.compute_exposures(k, ['mmt_pm', 'doc_pdf60'], "
+        "cfg=Config(backend='polars'), progress=False)\n"
+        "assert len(t) == 4 and not t.failures\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {**os.environ, "PORT_PARENT": str(REPO), "WORK": str(tmp_path),
+           "REFDIFF_REFERENCE_DIR": str(REPO / "tests" / "fixtures"
+                                        / "refdiff_torch"),
+           "REFDIFF_ALLOW_UNPINNED": "1"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    mods = out.stdout.split()
+    for mod in ("refdiff.harness", "refdiff.polars_shim",
+                "telemetry.regress", "pipeline"):
+        assert f"replication_of_minute_frequency_factor_tpu_torch.{mod}" \
+            in mods
+    assert [m for m in mods if _forbidden(m)] == []
 
 
 def test_discovery_refuses_the_cpu_unless_asked(monkeypatch, tmp_path):
