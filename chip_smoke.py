@@ -294,6 +294,13 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    against numpy when it is mounted, else the CLI failing before any day
    (exit 1, ``FileNotFoundError``) with no cache. The polars backend's
    seconds a day are printed as a host path's wall.
+19. the port's fuzz harnesses (``fuzz/``) on the card: every harness over
+   a fixed seed window (``FUZZ_RUNS``: parity below 10k, from 10k and
+   from 31k; 200 kernel cases; 20 seeds of each other harness, refdiff on
+   the stand-in tree unless the audited one is mounted), then the parity
+   suite's pinned seeds, each run a subprocess on ``cuda`` (8 at once)
+   that must load nothing of JAX, the JAX package or ``tools``; one line a
+   run with its seeds, failures and seconds, and any failure fails.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel and path (the tiled kernel on the host driver's batches, on the
@@ -306,7 +313,6 @@ window-20 path); the last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
-import ast
 import importlib.util
 import json
 import os
@@ -349,28 +355,6 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def parity_tables():
-    """The CPU parity suite's tolerance tables, read from
-    tests/test_parity.py's source: the suite imports JAX, which this
-    script must not."""
-    want = {"RTOL", "ATOL", "RTOL_OVERRIDE", "NOISE_FACTORS", "NOISE_ATOL",
-            "DEGENERATE_BETA_Z", "DEGENERATE_BETA_STD", "BETA_EPS_REL",
-            "DEGENERATE_KURT", "PDF_EDGE_EPS", "_PDF_THRESHOLDS",
-            "PDF_RANK_SLACK"}
-    tree = ast.parse((REPO / "tests" / "test_parity.py").read_text())
-    out = {}
-    for node in tree.body:
-        if (isinstance(node, ast.Assign) and len(node.targets) == 1
-                and isinstance(node.targets[0], ast.Name)
-                and node.targets[0].id in want):
-            expr = compile(ast.Expression(node.value), "test_parity", "eval")
-            out[node.targets[0].id] = eval(expr, {"np": np})
-    missing = want - set(out)
-    if missing:
-        fail(f"tests/test_parity.py lacks {sorted(missing)}")
-    return out
 
 
 def cuda_times_ms(fn, iters: int = 10, warmup: int = 3):
@@ -4447,10 +4431,10 @@ FOREIGN = ("jax", "jaxlib", "replication_of_minute_frequency_factor_tpu",
            "tools")
 
 
-def run_module(module: str, argv, env=None, timeout: int = 600):
-    """``python -m module argv`` in a subprocess from the repo root, with
-    a check on the way out that it loaded nothing of ``FOREIGN``:
-    (exit code, stdout lines, stderr, seconds)."""
+def module_command(module: str, argv):
+    """The command line of ``python -m module argv`` wrapped in a check on
+    the way out that it loaded nothing of ``FOREIGN`` (exit code 99 and a
+    ``FOREIGN MODULES`` line on stderr if it did)."""
     code = (
         "import runpy, sys\n"
         f"sys.argv = [{module!r}] + sys.argv[1:]\n"
@@ -4465,10 +4449,17 @@ def run_module(module: str, argv, env=None, timeout: int = 600):
         "    print(f'FOREIGN MODULES {bad}', file=sys.stderr)\n"
         "    rc = 99\n"
         "sys.exit(rc)\n")
+    return [sys.executable, "-c", code, *map(str, argv)]
+
+
+def run_module(module: str, argv, env=None, timeout: int = 600):
+    """``python -m module argv`` in a subprocess from the repo root
+    (:func:`module_command`): (exit code, stdout lines, stderr,
+    seconds)."""
     t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-c", code, *map(str, argv)],
-                       cwd=REPO, capture_output=True, text=True,
-                       env=env, timeout=timeout)
+    p = subprocess.run(module_command(module, argv), cwd=REPO,
+                       capture_output=True, text=True, env=env,
+                       timeout=timeout)
     secs = time.perf_counter() - t0
     if "FOREIGN MODULES" in p.stderr:
         fail(f"phase 18: {module} {argv} loaded "
@@ -4509,46 +4500,22 @@ def cache_rows(table, dates):
             for n in table.factor_names}
 
 
-def pdf_acceptance(path: Path, threshold: float, eps: float):
+def pdf_acceptance(path: Path):
     """tests/test_parity.py's doc_pdf acceptance sets for one day file,
-    through the port's oracle: ``{code: values}`` of the crossing re-read
-    at the threshold and ``eps`` either side, with the end-of-day returns
-    in f64 and quantized to f32 before the whole-frame rank."""
+    through the port's copy of its comparator (the f64, f32-quantized and
+    card end-of-day returns, each walk re-read at the threshold and
+    ``PDF_EDGE_EPS`` either side): ``{(code, name): values}``."""
+    import pandas as pd
+
     from replication_of_minute_frequency_factor_tpu_torch.data import io
-    from replication_of_minute_frequency_factor_tpu_torch.oracle.kernels import (  # noqa: E501
-        Group, _doc_pdf)
-    from replication_of_minute_frequency_factor_tpu_torch.oracle.stats import (
-        rank_average)
+    from replication_of_minute_frequency_factor_tpu_torch.fuzz import (
+        comparator)
 
     day = io.read_minute_day(str(path))
-    order = np.lexsort((day["time"], day["code"]))
-    code = np.asarray(day["code"]).astype(str)[order]
-    cols = {k: np.asarray(day[k], np.float64)[order]
-            for k in ("open", "high", "low", "close", "volume")}
-    time_ = np.asarray(day["time"], np.int64)[order]
-    starts = np.r_[0, np.flatnonzero(code[1:] != code[:-1]) + 1, len(code)]
-    out = {}
-    for quantize in (False, True):
-        c = cols["close"]
-        if quantize:
-            c = c.astype(np.float32).astype(np.float64)
-        eod = np.empty(len(c))
-        with np.errstate(divide="ignore", invalid="ignore"):
-            for b0, b1 in zip(starts[:-1], starts[1:]):
-                eod[b0:b1] = c[b1 - 1] / c[b0:b1]
-        if quantize:
-            eod = eod.astype(np.float32).astype(np.float64)
-        grank = rank_average(eod)
-        for b0, b1 in zip(starts[:-1], starts[1:]):
-            g = Group(time=time_[b0:b1],
-                      **{k: v[b0:b1] for k, v in cols.items()},
-                      grank=grank[b0:b1])
-            acc = out.setdefault(code[b0], set())
-            for t in (threshold - eps, threshold, threshold + eps):
-                v = _doc_pdf(g, t)
-                if np.isfinite(v):
-                    acc.add(float(v))
-    return out
+    df = pd.DataFrame({k: np.asarray(day[k]) for k in (
+        "code", "time", "open", "high", "low", "close", "volume")})
+    df["code"] = df["code"].astype(str)
+    return comparator._doc_pdf_acceptable(df, device="cuda")
 
 
 def hold_polars_to_torch(ref: dict, got: dict, files, tables) -> dict:
@@ -4581,12 +4548,10 @@ def hold_polars_to_torch(ref: dict, got: dict, files, tables) -> dict:
             for j in np.flatnonzero(bad):
                 by_date.setdefault(keys[j][1], []).append(j)
             for date, js in by_date.items():
-                acc = pdf_acceptance(files[date],
-                                     tables["_PDF_THRESHOLDS"][name],
-                                     tables["PDF_EDGE_EPS"])
+                acc = pdf_acceptance(files[date])
                 for j in js:
                     if any(np.isclose(a[j], v, rtol=rtol, atol=atol)
-                           for v in acc.get(keys[j][0], ())):
+                           for v in acc.get((keys[j][0], name), ())):
                         bad[j] = False
         if bad.any():
             j = np.flatnonzero(bad)[0]
@@ -4892,11 +4857,87 @@ def kind_name(card: str) -> str:
     return card.split(",")[0].strip()
 
 
+#: phase 19: each harness's seed window on the card (the parity tiers:
+#: below 10k, the wide shapes from 10k, the multiday branch from 31k),
+#: then the parity suite's pinned seeds
+FUZZ = "replication_of_minute_frequency_factor_tpu_torch.fuzz"
+FUZZ_RUNS = (("parity", 0, 20), ("parity", 10_000, 10_010),
+             ("parity", 31_000, 31_010), ("rolling", 0, 200),
+             ("wire", 0, 20), ("grid", 0, 20), ("eval", 0, 20),
+             ("resample", 0, 20), ("l3", 0, 20), ("group", 0, 20),
+             ("search", 0, 20), ("pipeline", 0, 10),
+             ("pipeline", 10_000, 10_010), ("parallel", 0, 20),
+             ("refdiff", 0, 20))
+#: harness processes phase 19 runs at once
+FUZZ_PROCS = 8
+
+
+def fuzz_path(card: str) -> None:
+    """Phase 19: every fuzz harness of the port over its window on
+    ``cuda``, each a subprocess (at most :data:`FUZZ_PROCS` at once) that
+    must load nothing of JAX, the JAX package or ``tools``, then the
+    parity suite's pinned seeds through the card; one line a run with
+    its seeds, failures and seconds; any failure fails the phase."""
+    import tempfile
+
+    from replication_of_minute_frequency_factor_tpu_torch.refdiff import (
+        harness)
+
+    tree = None if Path(harness.REFERENCE_DIR).is_dir() else STAND_IN_TREE
+    runs = [(f"{h} [{lo}, {hi})", [h, lo, hi]) for h, lo, hi in FUZZ_RUNS]
+    runs = [(label, argv + (["--tree", tree] if argv[0] == "refdiff"
+                            and tree is not None else []))
+            for label, argv in runs]
+    runs.append(("pinned parity seeds", ["--pinned"]))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pending = list(enumerate(runs))
+        live = {}
+        done = {}
+        while pending or live:
+            while pending and len(live) < FUZZ_PROCS:
+                i, (label, argv) = pending.pop(0)
+                out = open(Path(tmp) / f"{i}.log", "w")
+                live[i] = (subprocess.Popen(
+                    module_command(FUZZ, [*argv, "--device", "cuda"]),
+                    cwd=REPO, stdout=out, stderr=subprocess.STDOUT,
+                    text=True), out, time.perf_counter())
+            for i, (proc, out, t_start) in list(live.items()):
+                if proc.poll() is not None:
+                    out.close()
+                    done[i] = (proc.returncode, time.perf_counter() - t_start,
+                               (Path(tmp) / f"{i}.log").read_text())
+                    del live[i]
+            time.sleep(0.2)
+    wall = time.perf_counter() - t0
+    total = 0
+    for i, (label, _) in enumerate(runs):
+        rc, secs, text = done[i]
+        if "FOREIGN MODULES" in text:
+            fail(f"phase 19 {label}: loaded "
+                 f"{text.split('FOREIGN MODULES')[1].strip()[:200]}")
+        summary = [ln for ln in text.splitlines() if ln.startswith("DONE ")]
+        m = re.match(r"DONE (\d+) seeds, (\d+) failures", summary[-1]) \
+            if summary else None
+        if rc != 0 or m is None or m.group(2) != "0":
+            fail(f"phase 19 {label}: exit {rc}; output:\n{text[-3000:]}")
+        n = int(m.group(1))
+        total += n
+        log(f"phase 19 fuzz {label}: {n} seeds, 0 failures, {secs:.1f} s "
+            f"({n / secs:.2f} seeds/s, subprocess start included) on "
+            f"{card}")
+    log(f"phase 19: {total} seeds over {len(runs)} runs, 0 failures, "
+        f"{wall:.1f} s wall ({FUZZ_PROCS} processes at once; refdiff on "
+        f"{'the audited tree' if tree is None else STAND_IN_TREE.name})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke needs an NVIDIA GPU")
     from replication_of_minute_frequency_factor_tpu_torch import (
         compute_batch, kernels, pipeline, wire)
+    from replication_of_minute_frequency_factor_tpu_torch.fuzz import (
+        comparator)
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         DayContext, factor_names)
     from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
@@ -4915,7 +4956,9 @@ def main() -> None:
     log(f"device: {kind}; count {torch.cuda.device_count()}; torch "
         f"{torch.__version__}; CUDA {torch.version.cuda}; python "
         f"{sys.version.split()[0]}")
-    tables = parity_tables()
+    # the parity suite's tolerance tables, from the port's copy of its
+    # comparator (tests/test_parity.py imports JAX)
+    tables = comparator.tables()
 
     # 2. build
     t0 = time.perf_counter()
@@ -5125,6 +5168,9 @@ def main() -> None:
 
     # 17. the analysis package's op-trace tier on the card, and analyze
     trace_line = trace_tier_path(tables, card)
+
+    # 19. the fuzz harnesses on the card
+    fuzz_path(card)
 
     src = "replication_of_minute_frequency_factor_tpu_torch/csrc/" \
           "rolling_moments.cu"

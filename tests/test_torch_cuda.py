@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from replication_of_minute_frequency_factor_tpu_torch import (
-    compute_batch, compute_packed, eval_ops, pins)
+    compute_batch, compute_packed, eval_ops, fuzz, pins)
 from replication_of_minute_frequency_factor_tpu_torch import pipeline as pl
 from replication_of_minute_frequency_factor_tpu_torch.config import Config
 from replication_of_minute_frequency_factor_tpu_torch.models import (
@@ -34,6 +34,7 @@ from replication_of_minute_frequency_factor_tpu_torch.models import (
 from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
     Telemetry)
 from replication_of_minute_frequency_factor_tpu_torch.data import wire
+from replication_of_minute_frequency_factor_tpu_torch.fuzz import comparator
 from replication_of_minute_frequency_factor_tpu_torch.ops import (
     masked_order, rank_average)
 from replication_of_minute_frequency_factor_tpu_torch.ops import rolling
@@ -282,7 +283,7 @@ def test_driver_on_the_card_equals_the_cpu(tmp_path):
     assert reg.histogram_stats("pipeline.h2d_ms")["count"] == 2
     assert reg.counter_value("pipeline.h2d_bytes") > 0
     names = factor_names()
-    tables = smoke.parity_tables()
+    tables = comparator.tables()
     for dates, bars, mask, codes, present in smoke.driver_batches(d, 2):
         a, b = (torch.from_numpy(smoke.table_block(t, dates, codes,
                                                    present, names))
@@ -349,7 +350,7 @@ def test_stream_day_on_the_card_matches_the_cpu_port():
     kurt = {n: b[names.index(n)].double().numpy()
             for n in ("shape_kurt", "shape_kurtVol")}
     smoke.compare_blocks("stream card-vs-cpu", names, a, b,
-                         smoke.parity_tables(), ctx.beta_moments()[:3],
+                         comparator.tables(), ctx.beta_moments()[:3],
                          noisy=True, kurt=kurt, pdf_ctx=ctx)
 
 
@@ -464,7 +465,7 @@ def test_served_block_on_the_card_matches_the_cpu_server():
     ctx = DayContext(torch.where(cmask[..., None], cbars, 0.0), cmask,
                      rolling_impl="torch")
     smoke.compare_blocks("serve card-vs-cpu", names, a, b,
-                         smoke.parity_tables(), ctx.beta_moments()[:3],
+                         comparator.tables(), ctx.beta_moments()[:3],
                          noisy=True, pdf_ctx=ctx)
     row = names.index("mmt_ols_qrs")
     cpu_ic = engine._ic_fn(block["exposures"], block["close"],
@@ -791,7 +792,7 @@ def test_resident_year_on_the_card_matches_the_cpu():
     want = pl.compute_packed_resident(
         [torch.from_numpy(b).clone() for b in bufs], spec, "wire", names,
         device="cpu")
-    tables = smoke.parity_tables()
+    tables = comparator.tables()
     for i, b in enumerate(bufs):
         bars, mask = wire.decode(*wire.unpack(torch.from_numpy(b), spec))
         ctx = DayContext(bars, mask, rolling_impl="torch")
@@ -1081,3 +1082,17 @@ def test_trace_tier_on_the_card_sees_no_sync_and_counts_the_kernel():
     for op, c in wrap.counts().items():
         want[op] = want.get(op, 0) + c
     assert tk.counts() == {k: v for k, v in sorted(want.items()) if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", fuzz.HARNESSES)
+def test_fuzz_harness_on_the_card(name):
+    """Each fuzz harness of the port clean over a short window on the
+    card (the refdiff one on the stand-in reference tree)."""
+    _card()
+    kw = {}
+    if name == "refdiff":
+        kw["tree"] = str(Path(__file__).parent / "fixtures" /
+                         "refdiff_torch")
+    lo, hi = (0, 40) if name == "rolling" else (0, 3)
+    assert fuzz.harness(name).run(lo, hi, "cuda", **kw) == []
