@@ -16,11 +16,18 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    against the rowwise one; both timed in turns with CUDA events at the
    240/390/1440-slot shapes, and each in turns with its plain version at
    the shape and window of the path whose launches the kernels line counts;
+   the pv_corr kernel against ``pv_corr_plain`` on the same card tensors
+   (``torch_cases.pv_corr_rows``' edge rows, then drawn ones) at phase 4's
+   ``[40000, 240]``, the year cells' ``[160000, 240]`` and ``[96000,
+   390]``, at 1440 slots and at odd row counts: NaN at the same lanes,
+   within ``L * eps`` elsewhere, the bits repeating; timed in turns with
+   ``pv_corr_plain`` at the first three;
 4. the main path at full width — ``synth_day`` → ``grid_day`` →
    ``compute_batch`` for all 58 factors, 5000 tickers x 8 days on
-   ``cn_ashare_240`` — through the tiled kernel (launch counts reset just
-   before, read just after) and held against the same batch through the
-   plain version; then the generic-window path,
+   ``cn_ashare_240`` — through the tiled kernel and one pv_corr launch
+   (launch counts reset just before, read just after), held against the
+   same batch through the plain rolling version, and its six corr_* rows
+   against ``pv_corr_plain`` on the batch's card bars; then the generic-window path,
    ``ops.rolling.rolling_window_stats`` at window 20 on the same batch,
    through the rowwise kernel;
 4c. the packed path at full width: the same batch encoded on the host into
@@ -146,8 +153,8 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    copied to the card pinned and non-blocking, and run by ONE
    ``compute_packed_resident`` call for all 58 factors with
    ``rolling_impl='cuda'`` under ``torch.cuda.set_sync_debug_mode
-   ('error')``, then fetched once. Held: 8 tiled launches (counts reset
-   just before, read just after), no host sync inside the call, batches 0
+   ('error')``, then fetched once. Held: 8 tiled and 8 pv_corr launches
+   (counts reset just before, read just after), no host sync inside the call, batches 0
    and 7 bitwise ``compute_packed_prepared`` on fresh copies of their
    buffers, the donated handles raising ``DonatedBufferError`` on use
    (naming the contract under ``debug_validate``), and the same year with
@@ -155,8 +162,8 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    ``factor_stats``: each payload byte-identical to ``encode_block`` of
    its raw slice, each stats row bitwise ``factor_stats_block``. Timed:
    the enqueue and the fetch apart, days/s, peak memory, and the tiled
-   kernel at the year's ``[160000, 240]`` in turns with its plain
-   version. 13b, inside phase 8's temporary directory (it runs right
+   and pv_corr kernels at the year's ``[160000, 240]`` on batch 0's
+   decoded bars in turns with their plain versions. 13b, inside phase 8's temporary directory (it runs right
    after 9b): the CLI's ``compute --profile-dir --telemetry-dir`` in this
    process over 16 of phase 8's day files (two tiled launches): the
    trace has device events (``device_time_block`` available), names the
@@ -308,13 +315,15 @@ streaming snapshots, on the server's block builds, on the resident
 year's batches, on a rank's step of the sharded year, on the fleet
 replicas' block builds, on a shard's snapshot of the placed carry at 2
 and 4 shards and on phase 17b's traced kernels, the rowwise kernel on the
-window-20 path); the last is ``{"ok": true, "device": {...}}``.
+window-20 path, the pv_corr kernel on phase 4's batch and on the resident
+year's batches); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import re
 import subprocess
@@ -565,6 +574,86 @@ def time_moments(rows: int, L: int, card: str, pad=None):
         f"{bound:.4f} ms by {by} ({mb:.1f} MB moved, {gi:.2f} G FP32 "
         "instructions)")
     return out
+
+
+def pv_corr_bound(rows: int, L: int):
+    """(bound_ms, bound_by) of one pv_corr call: close and volume f32 and
+    the mask byte read once (9 B a bar) and the six f32 answers of each
+    row written once, at the HBM rate."""
+    return (9 * rows * L + 24 * rows) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def pv_corr_inputs(rows: int, L: int, seed: int):
+    """``torch_cases.pv_corr_rows``' crafted edge rows, then drawn ones up
+    to ``rows``, on the card."""
+    bars, mask = cases.pv_corr_rows(seed, L, random_rows=max(rows - 20, 0))
+    return (torch.from_numpy(bars[:rows]).cuda(),
+            torch.from_numpy(mask[:rows]).cuda())
+
+
+def hold_pv_corr(label: str, bars, mask) -> float:
+    """The pv_corr kernel (one launch through the wrapper) against
+    ``pv_corr_plain`` on the same card tensors: NaN at the same lanes, and
+    elsewhere within ``L * eps`` (the kernel sums in another order, which
+    moves a correlation by at most about ``n * eps``;
+    tests/test_torch_pv_corr.py holds it so); a second launch repeats the
+    bits. Returns max |diff|."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        pv_corr_cuda)
+
+    L = mask.shape[-1]
+    before = pv_corr_cuda.launches
+    got = pv_corr_cuda.pv_corr(bars, mask)
+    again = pv_corr_cuda.pv_corr(bars, mask)
+    torch.cuda.synchronize()
+    if pv_corr_cuda.launches != before + 2:
+        fail(f"{label}: {pv_corr_cuda.launches - before} pv_corr launches "
+             "for two calls")
+    want = pv_corr_cuda.pv_corr_plain(bars[..., 3], bars[..., 4], mask)
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        fail(f"{label}: NaN at {int((torch.isnan(got) != torch.isnan(want)).sum())}"
+             " lanes where the plain version has none, or the reverse")
+    ok = ~torch.isnan(want)
+    err = float((got[ok] - want[ok]).abs().max()) if bool(ok.any()) else 0.0
+    tol = L * float(torch.finfo(torch.float32).eps)
+    if not err <= tol:
+        fail(f"{label}: max |diff| {err:.3e} vs the plain version, over "
+             f"L * eps = {tol:.3e}")
+    if not cases.same_bits(again, got):
+        fail(f"{label}: a second launch gave other bits")
+    per = [float((got[j][ok[j]] - want[j][ok[j]]).abs().max())
+           if bool(ok[j].any()) else 0.0 for j in range(got.shape[0])]
+    log(f"kernel pv_corr {label} [{math.prod(mask.shape[:-1])}, {L}]: NaN "
+        f"lanes identical to pv_corr_plain; max |diff| {err:.3e} (per "
+        f"factor {', '.join(f'{n} {e:.1e}' for n, e in zip(pv_corr_cuda.NAMES, per))})"
+        f" within L * eps = {tol:.3e}; bits repeat")
+    return err
+
+
+def time_pv_corr(label: str, bars, mask, card: str) -> dict:
+    """The pv_corr kernel (20 launches per event pair) in turns with
+    ``pv_corr_plain`` (one call per pair): kernel, plain, plain, kernel.
+    Returns the kernels line's times."""
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        pv_corr_cuda)
+
+    rows, L = math.prod(mask.shape[:-1]), mask.shape[-1]
+    kernel_ms, plain_ms = [], []
+    for dest, fn, clock in (
+            (kernel_ms, pv_corr_cuda.pv_corr, batched_times_ms),
+            (plain_ms, lambda b, m: pv_corr_cuda.pv_corr_plain(
+                b[..., 3], b[..., 4], m), cuda_times_ms),
+            (plain_ms, lambda b, m: pv_corr_cuda.pv_corr_plain(
+                b[..., 3], b[..., 4], m), cuda_times_ms),
+            (kernel_ms, pv_corr_cuda.pv_corr, batched_times_ms)):
+        dest += clock(lambda: fn(bars, mask))
+    bound, by = pv_corr_bound(rows, L)
+    log(f"pv_corr {label} [{rows}, {L}] on {card}: kernel "
+        f"{spread(kernel_ms)} ({bound / np.median(kernel_ms):.1%} of the "
+        f"{bound:.4f} ms bound by {by}); pv_corr_plain {spread(plain_ms)}")
+    return {"ms": float(np.median(kernel_ms)),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
+            "bound_by": by}
 
 
 def synth_batch(n_tickers: int, n_days: int, seed: int, session=None,
@@ -3281,8 +3370,8 @@ PROFILED_DAYS = 16
 
 def resident_year(tables, card: str) -> dict:
     """Phase 13a: ``compute_packed_resident`` over a year on the card; see
-    the module docstring. Returns the kernels line's entry for the tiled
-    kernel on the year's batches."""
+    the module docstring. Returns the kernels line's entries for the tiled
+    kernel and the pv_corr kernel on the year's batches."""
     from replication_of_minute_frequency_factor_tpu_torch import (
         config, pipeline)
     from replication_of_minute_frequency_factor_tpu_torch.data import (
@@ -3291,7 +3380,7 @@ def resident_year(tables, card: str) -> dict:
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         factor_names)
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
-        rolling, rolling_cuda)
+        pv_corr_cuda, rolling, rolling_cuda)
     from replication_of_minute_frequency_factor_tpu_torch.telemetry import (
         factorplane)
 
@@ -3326,6 +3415,7 @@ def resident_year(tables, card: str) -> dict:
     t_copy = time.perf_counter() - t0
     rolling_cuda.reset_launches()
     rolling.IMPL_COUNTS.clear()
+    pv_corr_cuda.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         t0 = time.perf_counter()
@@ -3335,6 +3425,7 @@ def resident_year(tables, card: str) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     launches = dict(rolling_cuda.launches)
+    pv_launches = pv_corr_cuda.launches
     impl_counts = dict(rolling.IMPL_COUNTS)
     t0 = time.perf_counter()
     fetched = ys.cpu()
@@ -3345,6 +3436,9 @@ def resident_year(tables, card: str) -> dict:
              f"the tiled kernel once a batch, {YEAR_BATCHES} in all")
     if impl_counts != {("cuda", "cuda"): YEAR_BATCHES}:
         fail(f"phase 13a: rolling impl resolved as {impl_counts}")
+    if pv_launches != YEAR_BATCHES:
+        fail(f"phase 13a: the resident year launched the pv_corr kernel "
+             f"{pv_launches} times; expected once a batch, {YEAR_BATCHES}")
     want_shape = (YEAR_BATCHES, len(names), YEAR_DAYS, TICKERS)
     if tuple(fetched.shape) != want_shape:
         fail(f"phase 13a: result {tuple(fetched.shape)}, not {want_shape}")
@@ -3354,7 +3448,8 @@ def resident_year(tables, card: str) -> dict:
     wall = t_enqueue + t_fetch
     log(f"phase 13a compute_packed_resident (all {len(names)}, "
         f"rolling_impl=cuda) under set_sync_debug_mode('error'): no host "
-        f"sync inside the call; launches {launches}; enqueue "
+        f"sync inside the call; launches {launches}, pv_corr "
+        f"{pv_launches}; enqueue "
         f"{t_enqueue:.3f} s, one fetch of {fetched.numel() * 4 / 1e6:.1f} "
         f"MB {t_fetch:.3f} s: {n_days / wall:.1f} days/s over {n_days} "
         f"days; the year's copy in (pinned, non-blocking) {t_copy:.3f} s; "
@@ -3443,8 +3538,12 @@ def resident_year(tables, card: str) -> dict:
                 "ref": fetched[:SHARDED_BATCHES].clone(), "rspec": rspec}
     del payload, stats, fetched
 
-    # the kernel at the year's batch shape, on batch 0's decoded bars
+    # the kernels at the year's batch shape, on batch 0's decoded bars
     bars, mask = wire.decode(*wire.unpack(host[0].to("cuda"), spec))
+    bars, mask = bars.contiguous(), mask.contiguous()
+    pv_line = {"launches": pv_launches,
+               "max_abs_err": hold_pv_corr("phase 13a batch 0", bars, mask),
+               **time_pv_corr("phase 13a batch 0", bars, mask, card)}
     low = bars[..., 2].reshape(-1, 240).contiguous()
     high = bars[..., 1].reshape(-1, 240).contiguous()
     pm = mask.reshape(-1, 240)
@@ -3472,7 +3571,7 @@ def resident_year(tables, card: str) -> dict:
     return {"launches": launches["tiled"], "max_abs_err": err,
             "ms": float(np.median(kernel_ms)),
             "plain_ms": float(np.median(plain_ms)), "bound_ms": bound,
-            "bound_by": by}, year_ctx
+            "bound_by": by}, pv_line, year_ctx
 
 
 def device_busy(events):
@@ -4706,7 +4805,7 @@ def trace_tier_path(tables, card: str) -> dict:
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         DayContext, registry)
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
-        rolling, rolling_cuda)
+        pv_corr_cuda, rolling, rolling_cuda)
 
     t_phase = time.perf_counter()
     names = registry.factor_names()
@@ -4714,21 +4813,32 @@ def trace_tier_path(tables, card: str) -> dict:
     if len(names) != 58 or len(family) != 5:
         fail(f"17: {len(names)} kernels, {len(family)} mmt_ols_*")
 
-    # 17a. the canonical shape, the plain rolling version, card vs CPU
+    # 17a. the canonical shape, the plain rolling version, card vs CPU;
+    # the pv_corr family runs its kernel on the card, in place of the
+    # plain version's ops, for the wrapper's
     t0 = time.perf_counter()
     cb, cm = tt.canonical_inputs()
     gb, gm = cb.cuda(), cm.cuda()
+    _, pv_plain = tt.trace(lambda: pv_corr_cuda.pv_corr(cb, cm))
+    _, pv_wrap = tt.trace(lambda: pv_corr_cuda.pv_corr(gb, gm))
     canon, device_only, n_cpu = {}, {}, 0
     for n in names:
         fn = registry.resolve(n)
         _, tc = tt.trace_kernel(fn, cb, cm, "torch")
         _, tg = tt.trace_kernel(fn, gb, gm, "torch")
         for t, where in ((tc, "the CPU"), (tg, card)):
-            if t.syncs or t.launches or \
+            want_pv = 1 if (t is tg and n in pv_corr_cuda.NAMES) else 0
+            if t.syncs or t.kernel_launches.get(tt.KERNEL_KEY) or \
+                    t.kernel_launches.get(tt.PV_CORR_KERNEL_KEY, 0) \
+                    != want_pv or \
                     set(t.impl_counts) - {("torch", "torch")}:
                 fail(f"17a {n} on {where}: syncs {t.syncs}, launches "
-                     f"{t.launches}, rolling impl {t.impl_counts}")
-        extra = tt.add_counts(tg.counts(), tc.counts(), -1)
+                     f"{t.kernel_launches}, rolling impl {t.impl_counts}")
+        cpu = tc.counts()
+        if n in pv_corr_cuda.NAMES:
+            cpu = tt.add_counts(tt.add_counts(cpu, pv_plain.counts(), -1),
+                                pv_wrap.counts())
+        extra = tt.add_counts(tg.counts(), cpu, -1)
         if any(op not in DEVICE_ONLY_OPS or c < 0
                for op, c in extra.items()):
             fail(f"17a {n}: the card's op counts differ from the CPU's "
@@ -4737,7 +4847,8 @@ def trace_tier_path(tables, card: str) -> dict:
         device_only = tt.add_counts(device_only, extra)
         canon[n] = tg.counts()
         n_cpu += sum(tc.ops.values())
-    n_card = sum(sum(v for k, v in c.items() if k != tt.KERNEL_KEY)
+    n_card = sum(sum(v for k, v in c.items()
+                     if k not in (tt.KERNEL_KEY, tt.PV_CORR_KERNEL_KEY))
                  for c in canon.values())
     log(f"17a: 58 kernels at (2, 3, 240), rolling_impl='torch': {n_cpu} "
         f"ATen ops on the CPU, {n_card} on the card; the fingerprints "
@@ -4751,7 +4862,7 @@ def trace_tier_path(tables, card: str) -> dict:
     _, t_plain = tt.trace(lambda: rolling_cuda.second_moments_plain(
         *args, WINDOW))
     _, t_wrap = tt.trace(lambda: rolling_cuda.second_moments(*args, WINDOW))
-    if t_wrap.launches != 1 or t_plain.launches:
+    if t_wrap.kernel_launches != {tt.KERNEL_KEY: 1} or t_plain.launches:
         fail(f"17: the wrapper launched {t_wrap.launches} times, the plain "
              f"version {t_plain.launches}")
 
@@ -4788,15 +4899,16 @@ def trace_tier_path(tables, card: str) -> dict:
         t = full[n]
         if t.syncs:
             fail(f"17b {n}: host syncs {t.syncs}")
+        rolled = t.kernel_launches.get(tt.KERNEL_KEY, 0)
         if n in family:
-            if t.launches != 1 or t.impl_counts != {("cuda", "cuda"): 1}:
-                fail(f"17b {n}: {t.launches} launches, impl "
+            if rolled != 1 or t.impl_counts != {("cuda", "cuda"): 1}:
+                fail(f"17b {n}: {t.kernel_launches} launches, impl "
                      f"{t.impl_counts}")
             want = tt.add_counts(tt.add_counts(canon[n], plain_ops, -1),
                                  t_wrap.counts())
         else:
-            if t.launches or t.impl_counts:
-                fail(f"17b {n}: {t.launches} launches, impl "
+            if rolled or t.impl_counts:
+                fail(f"17b {n}: {t.kernel_launches} launches, impl "
                      f"{t.impl_counts}")
             want = canon[n]
         if t.counts() != want:
@@ -4943,7 +5055,7 @@ def main() -> None:
     from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
         compute_packed_prepared)
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
-        rolling, rolling_cuda)
+        pv_corr_cuda, rolling, rolling_cuda)
 
     # 1. device
     smi = subprocess.run(
@@ -5022,6 +5134,20 @@ def main() -> None:
     # the two kernels in turns at window 50, 20 launches per event pair
     for r_, L in ((drv_rows, 240), (rows, 240), (rows, 390), (8000, 1440)):
         time_moments(r_, L, card, pad=drv_pad if r_ == drv_rows else None)
+    # the pv_corr kernel against pv_corr_plain at phase 4's batch, at the
+    # resident steps of both year cells, at 1440 slots and at odd row
+    # counts; timed in turns with pv_corr_plain where the kernels line and
+    # PERF.md's kernel table read it
+    pv_line = {}
+    for r_, L in ((rows, 240), (160000, 240), (96000, 390), (20000, 1440),
+                  (12347, 240), (3, 390)):
+        pb, pm = pv_corr_inputs(r_, L, seed=r_ + L)
+        pv_err = hold_pv_corr("phase 3", pb, pm)
+        if (r_, L) in ((rows, 240), (160000, 240), (96000, 390)):
+            times = time_pv_corr("phase 3", pb, pm, card)
+            if (r_, L) == (rows, 240):
+                pv_line = {"max_abs_err": pv_err, **times}
+        del pb, pm
 
     # 4. the main path at full width
     t0 = time.perf_counter()
@@ -5036,11 +5162,13 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     rolling_cuda.reset_launches()
     rolling.IMPL_COUNTS.clear()
+    pv_corr_cuda.reset_launches()
     t0 = time.perf_counter()
     out = compute_batch(bars, mask, device="cuda", rolling_impl="cuda")
     torch.cuda.synchronize()
     walls = [(time.perf_counter() - t0) * 1e3]
     launches = dict(rolling_cuda.launches)
+    pv_launches = pv_corr_cuda.launches
     impl_counts = dict(rolling.IMPL_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     walls += wall_times_ms(lambda: compute_batch(
@@ -5061,6 +5189,27 @@ def main() -> None:
     for i, name in enumerate(names):
         if not bool(torch.isfinite(out[i]).any()):
             fail(f"{name}: no finite value in the whole batch")
+    if pv_launches != 1:
+        fail(f"the main path launched the pv_corr kernel {pv_launches} "
+             "times; expected once")
+    # the family's rows against pv_corr_plain on the batch's card bars:
+    # rolling_impl does not reach the pv_corr kernel, so the comparison
+    # with the plain rolling run below sets the kernel against itself there
+    cb, cm = torch.from_numpy(bars).cuda(), torch.from_numpy(mask).cuda()
+    want = pv_corr_cuda.pv_corr_plain(cb[..., 3], cb[..., 4], cm)
+    got = torch.stack([out[names.index(n)] for n in pv_corr_cuda.NAMES])
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        fail("compute_batch: the corr_* factors' NaN lanes differ from "
+             "pv_corr_plain's")
+    ok = ~torch.isnan(want)
+    pv_err4 = float((got[ok] - want[ok]).abs().max())
+    if not pv_err4 <= 240 * float(torch.finfo(torch.float32).eps):
+        fail(f"compute_batch: the corr_* factors are {pv_err4:.3e} from "
+             "pv_corr_plain, over L * eps")
+    log(f"compute_batch: one pv_corr launch; the six corr_* factors within "
+        f"{pv_err4:.3e} of pv_corr_plain on the batch's card bars, NaN "
+        "lanes identical")
+    del cb, cm, want, got, ok
 
     ref = compute_batch(bars, mask, device="cuda", rolling_impl="torch")
     walls_plain = wall_times_ms(lambda: compute_batch(
@@ -5073,7 +5222,8 @@ def main() -> None:
     log(f"compute_batch rolling_impl=torch: wall {spread(walls_plain)}; "
         f"all {len(names)} factors agree with the kernel run (NaN/inf "
         f"positions identical; {n_bitwise} bitwise equal; worst value used "
-        f"{worst:.2e} of its tolerance) ({card})")
+        f"{worst:.2e} of its tolerance; the corr_* rows come from the "
+        f"pv_corr kernel on both sides) ({card})")
     del out, ref, ctx, beta
 
     # 4b. the generic-window path through the rowwise kernel
@@ -5143,7 +5293,7 @@ def main() -> None:
     discovery_path(card)
 
     # 13a. the resident year (13b ran inside phase 8's directory)
-    year_line, year_ctx = resident_year(tables, card)
+    year_line, year_pv_line, year_ctx = resident_year(tables, card)
 
     # 14. the sharded resident year on ranks (14c ran inside phase 8's
     # directory)
@@ -5204,7 +5354,18 @@ def main() -> None:
                            place_line),
                           ("second_moments_sharded_stream_snapshot_4",
                            place_wide_line),
-                          ("second_moments_trace_tier", trace_line))]}),
+                          ("second_moments_trace_tier", trace_line))]
+        + [{
+            "name": name,
+            "route": "cuda",
+            "source": "replication_of_minute_frequency_factor_tpu_torch/"
+                      "csrc/pv_corr.cu",
+            "replaces": None,
+            **entry,
+            "library_ms": None,
+        } for name, entry in (
+            ("pv_corr", {"launches": pv_launches, **pv_line}),
+            ("pv_corr_resident_year", year_pv_line))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

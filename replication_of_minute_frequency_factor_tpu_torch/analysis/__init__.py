@@ -16,8 +16,8 @@ codes and report keys):
   (``TorchDispatchMode``): op counts that grow with the data (a Python
   loop over it), float64 ops, host syncs, plus a per-kernel op-count
   fingerprint written to ``analysis_report_torch.json`` so graph drift
-  is diffable in review; the hand-written kernel's launches under
-  ``kernel:second_moments``.
+  is diffable in review; the hand-written kernels' launches under
+  ``kernel:second_moments`` and ``kernel:pv_corr``.
 * **Tier C** (:mod:`.concurrency_tier`) — the JAX package's
   lock-discipline and thread-lifecycle rules GL-C1..GL-C4, a copy, over
   the port's ``GLC_CONTRACT`` declarations.

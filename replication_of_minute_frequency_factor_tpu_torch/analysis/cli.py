@@ -161,7 +161,9 @@ def add_args(p: argparse.ArgumentParser) -> None:
                    choices=("torch", "cuda"),
                    help="rolling backend the trace tier runs (cuda: the "
                         "hand-written kernel, whose launches the "
-                        "fingerprints count under kernel:second_moments)")
+                        "fingerprints count under kernel:second_moments; "
+                        "on the card the pv_corr family's kernel counts "
+                        "under kernel:pv_corr whatever this says)")
     p.add_argument("--device", default=None,
                    help="device the trace tier runs on (default: cuda, "
                         "which must be present; 'cpu' traces on the CPU)")

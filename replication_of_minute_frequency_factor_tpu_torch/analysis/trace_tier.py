@@ -30,10 +30,11 @@ GL-B3  a host sync inside a kernel — the twin of the host callback:
        only the other forms show; Tier A's GL-A3 covers ``.cpu()`` in
        source.
 
-The hand-written kernel is a ctypes call (``kernels.py``,
-``ops/rolling_cuda.py``), which no dispatch mode sees: its launches are
-read from the wrapper's launch counter and written into the fingerprint
-under one explicit key, :data:`KERNEL_KEY`.
+The hand-written kernels are ctypes calls (``kernels.py``,
+``ops/rolling_cuda.py``, ``ops/pv_corr_cuda.py``), which no dispatch mode
+sees: their launches are read from each wrapper's launch counter and
+written into the fingerprint under one explicit key a kernel,
+:data:`KERNEL_KEY` and :data:`PV_CORR_KERNEL_KEY`.
 
 The wrapper tier holds the port's driving loops (a resident step, the
 stream's minute fold, the result encode, the fast finalize and one
@@ -81,8 +82,18 @@ HOST_SYNC_OPS = frozenset({
 _INDEX_OPS = frozenset({"aten.index", "aten.index_put", "aten.index_put_",
                         "aten._index_put_impl_"})
 
-#: the fingerprint key of the hand-written kernel's launches
+#: the fingerprint keys of the hand-written kernels' launches: the
+#: rolling second moments and the six price-volume correlations
 KERNEL_KEY = "kernel:second_moments"
+PV_CORR_KERNEL_KEY = "kernel:pv_corr"
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launches so far, by fingerprint key."""
+    from ..ops import pv_corr_cuda, rolling_cuda
+
+    return {KERNEL_KEY: sum(rolling_cuda.launches.values()),
+            PV_CORR_KERNEL_KEY: pv_corr_cuda.launches}
 
 
 def _packet(func) -> str:
@@ -146,23 +157,25 @@ def _sync_symbol(func, name, args, kwargs, ins, outs) -> Optional[str]:
 
 class OpTrace:
     """What one traced call did: ATen op counts, wide-dtype and sync
-    ops, the hand-written kernel's launches and the rolling backend's
-    ``(requested, resolved)`` calls."""
+    ops, the hand-written kernels' launches (``kernel_launches`` by key,
+    ``launches`` their sum) and the rolling backend's ``(requested,
+    resolved)`` calls."""
 
-    def __init__(self, rec: OpRecorder, launches: int,
+    def __init__(self, rec: OpRecorder, kernel_launches: Dict[str, int],
                  impl_counts: Dict[Tuple[str, str], int]):
         self.ops = dict(rec.ops)
         self.wide = dict(rec.wide)
         self.syncs = dict(rec.syncs)
-        self.launches = launches
+        self.kernel_launches = {k: n for k, n in kernel_launches.items()
+                                if n}
+        self.launches = sum(self.kernel_launches.values())
         self.impl_counts = impl_counts
 
     def counts(self) -> Dict[str, int]:
-        """The fingerprint's op counts: the ATen ops, and the kernel's
-        launches under :data:`KERNEL_KEY` when it ran."""
+        """The fingerprint's op counts: the ATen ops, and each kernel's
+        launches under its key when it ran."""
         out = dict(self.ops)
-        if self.launches:
-            out[KERNEL_KEY] = self.launches
+        out.update(self.kernel_launches)
         return dict(sorted(out.items()))
 
     def fingerprint(self) -> Dict:
@@ -173,9 +186,9 @@ class OpTrace:
 def trace(fn: Callable[[], object]) -> Tuple[object, OpTrace]:
     """Run ``fn()`` under inference mode inside an :class:`OpRecorder`;
     returns its result and the :class:`OpTrace`."""
-    from ..ops import rolling, rolling_cuda
+    from ..ops import rolling
 
-    before = sum(rolling_cuda.launches.values())
+    before = _kernel_launches()
     impl_before = dict(rolling.IMPL_COUNTS)
     rec = OpRecorder()
     with torch.inference_mode(), rec:
@@ -183,8 +196,8 @@ def trace(fn: Callable[[], object]) -> Tuple[object, OpTrace]:
     impl = {k: n - impl_before.get(k, 0)
             for k, n in rolling.IMPL_COUNTS.items()
             if n != impl_before.get(k, 0)}
-    return out, OpTrace(rec, sum(rolling_cuda.launches.values()) - before,
-                        impl)
+    launched = {k: n - before[k] for k, n in _kernel_launches().items()}
+    return out, OpTrace(rec, launched, impl)
 
 
 def canonical_inputs(days: int = 2, tickers: int = 3, device="cpu",

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 #: kernel library name -> its source under csrc/
-SOURCES = {"rolling_moments": "rolling_moments.cu"}
+SOURCES = {"rolling_moments": "rolling_moments.cu", "pv_corr": "pv_corr.cu"}
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "kernels"

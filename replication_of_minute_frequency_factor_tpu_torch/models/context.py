@@ -10,6 +10,8 @@ Field layout follows :mod:`..data.minute` (open, high, low, close, volume).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..data.minute import F_CLOSE, F_HIGH, F_LOW, F_OPEN, F_VOLUME
@@ -98,14 +100,14 @@ class DayContext:
     def volume(self):
         return self.bars[..., F_VOLUME]
 
-    def _get(self, key, fn):
+    def _get(self, key, fn, **labels):
         """The memoised ``key``; a miss computes ``fn()`` inside a
-        ``ctx.<key>`` span (a tuple key's parts joined by dots), so the
-        first kernel that asks for an intermediate holds it as a child
-        span and its own time excludes it."""
+        ``ctx.<key>`` span (a tuple key's parts joined by dots; ``labels``
+        ride on it), so the first kernel that asks for an intermediate
+        holds it as a child span and its own time excludes it."""
         if key not in self._memo:
             name = ".".join(map(str, key)) if isinstance(key, tuple) else key
-            with self.tracer("ctx." + name):
+            with self.tracer("ctx." + name, **labels):
                 self._memo[key] = fn()
         return self._memo[key]
 
@@ -143,6 +145,24 @@ class DayContext:
         """(values, ok): close pct-change over consecutive present bars."""
         return self._get("pct_close",
                          lambda: pct_change_valid(self.close, self.mask))
+
+    @property
+    def pv_corr(self):
+        """The pv_corr family's six correlations, ``[6, ..., T]`` in
+        ``ops.pv_corr_cuda.NAMES`` order, computed together: one launch of
+        the hand-written kernel for CUDA bars, the plain compositions for
+        CPU bars. The ``ctx.pv_corr`` span is labelled with the ``rows``
+        (the leading dims' product), the ``slots`` and the ``impl``
+        (``cuda`` or ``plain``). A view the kernel cannot read is made
+        contiguous first (a no-op on the decoded batches)."""
+        from ..ops import pv_corr_cuda
+
+        return self._get(
+            "pv_corr",
+            lambda: pv_corr_cuda.pv_corr(self.bars.contiguous(),
+                                         self.mask.contiguous()),
+            rows=math.prod(self.mask.shape[:-1]), slots=self.mask.shape[-1],
+            impl="plain" if self.bars.device.type == "cpu" else "cuda")
 
     @property
     def vol_sum(self):

@@ -7,17 +7,21 @@ over pairwise-valid bars; pct-changes and shifts run over consecutive
 
 from __future__ import annotations
 
-from ..ops import masked_corr, pct_change_valid, shift_valid
+from ..ops.pv_corr_cuda import NAMES
 from .context import DayContext
 from .registry import finalize_class, register, stream_requirement
+
+# Each kernel reads its row of the shared ``DayContext.pv_corr``: the six
+# are computed together (one launch of csrc/pv_corr.cu on the card; on the
+# CPU ``ops.pv_corr_cuda.pv_corr_plain``, whose six compositions are the
+# ones the docstrings below describe).
 
 
 @register("corr_prv")
 def corr_prv(ctx: DayContext):
     """corr(close pct-change, volume). Ref :836-847 (first bar's null pct
     drops that pair)."""
-    pct, ok = ctx.pct_close
-    return masked_corr(pct, ctx.volume, ok)
+    return ctx.pv_corr[NAMES.index("corr_prv")]
 
 
 @register("corr_prvr")
@@ -27,39 +31,32 @@ def corr_prvr(ctx: DayContext):
     Ref :850-874: zero-volume bars are removed *before* the pct-changes, so
     changes straddle the removed bars.
     """
-    base = ctx.mask & (ctx.volume != 0)
-    pc, ok_c = pct_change_valid(ctx.close, base)
-    pv, ok_v = pct_change_valid(ctx.volume, base)
-    return masked_corr(pc, pv, ok_c & ok_v)
+    return ctx.pv_corr[NAMES.index("corr_prvr")]
 
 
 @register("corr_pv")
 def corr_pv(ctx: DayContext):
     """corr(close, volume). Ref :877-888."""
-    return masked_corr(ctx.close, ctx.volume, ctx.mask)
+    return ctx.pv_corr[NAMES.index("corr_pv")]
 
 
 @register("corr_pvd")
 def corr_pvd(ctx: DayContext):
     """corr(close, volume lagged one present bar). Ref :891-902."""
-    v, ok = shift_valid(ctx.volume, ctx.mask, 1)
-    return masked_corr(ctx.close, v, ok)
+    return ctx.pv_corr[NAMES.index("corr_pvd")]
 
 
 @register("corr_pvl")
 def corr_pvl(ctx: DayContext):
     """corr(close, volume led one present bar). Ref :905-916."""
-    v, ok = shift_valid(ctx.volume, ctx.mask, -1)
-    return masked_corr(ctx.close, v, ok)
+    return ctx.pv_corr[NAMES.index("corr_pvl")]
 
 
 @register("corr_pvr")
 def corr_pvr(ctx: DayContext):
     """corr(close, volume pct-change) over nonzero-volume bars.
     Ref :919-932."""
-    base = ctx.mask & (ctx.volume != 0)
-    pv, ok = pct_change_valid(ctx.volume, base)
-    return masked_corr(ctx.close, pv, ok)
+    return ctx.pv_corr[NAMES.index("corr_pvr")]
 
 
 # --- streaming readiness: Pearson needs >1 pairwise-valid

@@ -18,8 +18,9 @@ every static argument the JAX package's key holds; its
 ``serve.executables{outcome=miss}`` counter counts the keys a request
 added. What a request really builds is counted by
 :func:`..kernels.build_count` (``nvcc`` runs and library loads): an
-engine that launches the kernel loads its library once, at construction,
-so a warm server builds NOTHING on any request — the gate the JAX
+engine on a card loads the kernel libraries it launches once, at
+construction (the pv_corr family's always, the rolling moments' with
+``rolling_impl='cuda'``), so a warm server builds NOTHING on any request — the gate the JAX
 package's ``xla.compiles`` is there.
 
 Results leave as device tensors, enqueued and not waited for; the
@@ -143,9 +144,11 @@ class ServeEngine:
         self.executables = (executables if executables is not None
                             else ExecutableCache(telemetry=telemetry))
         self._floor: dict = {}
-        if self.device.type == "cuda" and self.rolling_impl == "cuda":
+        if self.device.type == "cuda":
             from .. import kernels
-            kernels.load("rolling_moments")
+            kernels.load("pv_corr")
+            if self.rolling_impl == "cuda":
+                kernels.load("rolling_moments")
 
     def _tel(self):
         if self.telemetry is not None:

@@ -260,12 +260,15 @@ class StreamEngine:
 
     def _exe(self, label: str, key_extra: tuple, fn):
         """The cached callable for ``label`` at ``key_extra``; a build
-        binds ``fn``, loading the kernel library first when the engine
-        launches the kernel."""
+        binds ``fn``, loading first the kernel libraries the engine
+        launches on a card: the pv_corr family's always, the rolling
+        moments' with ``rolling_impl='cuda'``."""
         def build():
-            if self._uses_kernel():
+            if self.device.type == "cuda":
                 from .. import kernels
-                kernels.load("rolling_moments")
+                kernels.load("pv_corr")
+                if self._uses_kernel():
+                    kernels.load("rolling_moments")
             return fn
 
         key = (label,) + self._graph_key() + key_extra

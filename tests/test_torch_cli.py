@@ -143,7 +143,7 @@ def test_doctor_reports_the_runtime(capsys):
     assert (rc == 0) == out["cuda_available"]
     assert out["kernel_build_dir"].endswith(os.path.join("build",
                                                          "kernels"))
-    assert set(out["kernels_built"]) == {"rolling_moments"}
+    assert set(out["kernels_built"]) == {"rolling_moments", "pv_corr"}
     assert "nvcc" in out
     assert out["native_encoder"].startswith(("built", "unavailable"))
     assert "days_per_batch" in out["config"]

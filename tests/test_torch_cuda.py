@@ -1045,17 +1045,25 @@ def test_trace_tier_on_the_card_sees_no_sync_and_counts_the_kernel():
     ``set_sync_debug_mode("error")``, its fingerprint is the CPU's plus
     the pinned upload of the grid times, and an ``mmt_ols_*`` kernel
     through the hand-written kernel counts one launch under
-    ``kernel:second_moments`` in place of the plain version's ops."""
+    ``kernel:second_moments`` in place of the plain version's ops. The
+    pv_corr family runs its hand-written kernel on every card trace: each
+    of the six counts one launch under ``kernel:pv_corr`` in place of the
+    plain version's ops, for the wrapper's."""
     _card()
     from replication_of_minute_frequency_factor_tpu_torch.analysis import (
         trace_tier as tt)
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         registry)
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        pv_corr_cuda)
 
     cb, cm = tt.canonical_inputs()
     gb, gm = cb.cuda(), cm.cuda()
+    _, pv_plain = tt.trace(lambda: pv_corr_cuda.pv_corr(cb, cm))
     torch.cuda.set_sync_debug_mode("error")
     try:
+        _, pv_wrap = tt.trace(lambda: pv_corr_cuda.pv_corr(gb, gm))
+        assert pv_wrap.kernel_launches == {tt.PV_CORR_KERNEL_KEY: 1}
         for n in registry.factor_names():
             fn = registry.resolve(n)
             _, tc = tt.trace_kernel(fn, cb, cm, "torch")
@@ -1064,6 +1072,9 @@ def test_trace_tier_on_the_card_sees_no_sync_and_counts_the_kernel():
             want = dict(tc.counts())
             want["aten.pin_memory.default"] = \
                 want.get("aten.pin_memory.default", 0) + 1
+            if n in pv_corr_cuda.NAMES:
+                want = tt.add_counts(tt.add_counts(
+                    want, pv_plain.counts(), -1), pv_wrap.counts())
             assert tg.counts() == dict(sorted(want.items())), n
         _, tk = tt.trace_kernel(registry.resolve("mmt_ols_qrs"), gb, gm,
                                 "cuda")

@@ -200,9 +200,13 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():
 def test_kernel_source_ships_and_builds_into_an_ignored_directory():
     from replication_of_minute_frequency_factor_tpu_torch import kernels
 
-    for src in kernels.SOURCES.values():
+    # each source names the TPU kernel it replaces, or says it replaces none
+    replaces = {"rolling_moments": "rolling_pallas.py::second_moments",
+                "pv_corr": "It replaces no TPU kernel"}
+    assert set(kernels.SOURCES) == set(replaces)
+    for name, src in kernels.SOURCES.items():
         text = (kernels.CSRC_DIR / src).read_text()
-        assert "rolling_pallas.py::second_moments" in text
+        assert replaces[name] in text
         assert "__global__" in text and 'extern "C"' in text
     assert "-gencode=arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert kernels.library_path("rolling_moments").parent == \

@@ -89,6 +89,72 @@ def crafted_rows(seed: int = 64, rows: int = 8, lanes: int = 64):
     return x, mask
 
 
+#: the rows of :func:`pv_corr_rows` whose exact answer is NaN only under
+#: the ``constant_window`` pin's "degenerate" reading: a constant close or
+#: volume, whose correlations under "noise" are rounding noise by design
+PV_CORR_CONSTANT_ROWS = (14, 15)
+
+
+def pv_corr_rows(seed: int, n_slots: int, random_rows: int = 16):
+    """``(bars [R, n_slots, 5] f32, mask [R, n_slots] bool)`` numpy rows
+    for the pv_corr family, crafted first, then ``random_rows`` drawn:
+    0-1 random gaps (10% and 60% absent); 2 runs of zero volume; 3 zero
+    volume next to gaps; 4-7 exactly 0, 1, 2 and 3 present bars (spread
+    over chunks); 8 bars only in the last chunk; 9 one bar every 40
+    slots; 10 a stream-style prefix mask (minute 60); 11 zero volume
+    everywhere; 12 zero volume on the first bars; 13 all present; 14
+    constant close; 15 constant volume (:data:`PV_CORR_CONSTANT_ROWS`);
+    16 NaN close in a valid lane; 17 NaN volume in a valid lane; 18 NaN
+    and inf garbage in every masked lane; 19 huge volume pct-changes (1 to
+    1e6 shares). Absent bars hold garbage unless zeroed as the ingest
+    zeroes them (rows 10 and 18 besides)."""
+    rng = np.random.default_rng([seed, n_slots])
+    n = 20 + random_rows
+    S = n_slots
+    shape = (n, S)
+    close = 10.0 * np.exp(np.cumsum(rng.standard_normal(shape) * 1e-3,
+                                    axis=-1))
+    close = np.round(close, 2)
+    open_ = close * (1 + rng.standard_normal(shape) * 1e-4)
+    high = np.maximum(open_, close) * 1.0002
+    low = np.minimum(open_, close) * 0.9998
+    volume = (rng.integers(0, 1000, shape) * 100).astype(np.float64)
+    volume[rng.random(shape) < 0.03] = 0.0
+    mask = rng.random(shape) > 0.1
+    mask[1] = rng.random(S) > 0.6
+    mask[2] = True
+    for lo in (5, S // 2, S - 25):
+        volume[2, lo:lo + 20] = 0.0
+    mask[3] = True
+    mask[3, 10:13] = False
+    volume[3, [9, 13]] = 0.0
+    for r, k in zip((4, 5, 6, 7), (0, 1, 2, 3)):
+        mask[r] = False
+        mask[r, np.linspace(3, S - 2, k).astype(int)] = True
+    mask[8] = False
+    mask[8, S - 1 - (S - 1) % 32:] = True
+    mask[9] = np.arange(S) % 40 == 7
+    mask[10, 60:] = False
+    volume[11] = 0.0
+    mask[12] = True
+    volume[12, :7] = 0.0
+    mask[13] = True
+    close[14] = 12.34
+    volume[15] = 500.0
+    mask[16, 50], close[16, 50] = True, np.nan
+    mask[17, 70], volume[17, 70] = True, np.nan
+    volume[19] = 10.0 ** rng.integers(0, 7, S)
+    mask[19] = True
+    bars = np.stack([open_, high, low, close, volume], axis=-1)
+    bars = bars.astype(np.float32)
+    for r in (10, 18):
+        bars[r][~mask[r]] = 0.0
+    junk = ~mask[18]
+    bars[18, junk, 3] = np.where(np.arange(junk.sum()) % 2, np.nan, np.inf)
+    bars[18, junk, 4] = np.where(np.arange(junk.sum()) % 2, -np.inf, np.nan)
+    return bars, mask
+
+
 def same_bits(a, b) -> bool:
     """Bitwise equality of two float32 (or integer/bool) tensors."""
     if a.dtype == torch.float32:
