@@ -37,6 +37,12 @@ from perfbench.reference import compare, sessions
 PRODUCER_STAGES = ("io", "grid", "wire_encode", "pack")
 #: the only session ``compute_exposures`` grids
 SESSION = "cn_ashare_240"
+#: the planted faults that apply to what this driver runs, by the names
+#: that ``perfbench/tests/test_perfbench_run.py`` gives them: three in the
+#: factor step (``pipeline._stacked``, under every batch of the host
+#: driver)
+FAULTS = ("step_writes_nothing", "half_the_batch_left_out",
+          "an_answer_altered")
 
 
 def write_days(args) -> None:

@@ -33,6 +33,12 @@ from perfbench.reference import compare, sessions
 #: passes of the widen-only floor before the year counts as not
 #: encodable under one spec
 MAX_PASSES = 4
+#: the planted faults that apply to what this driver runs, by the names
+#: that ``perfbench/tests/test_perfbench_run.py`` gives them: three in the
+#: factor step (``pipeline._stacked``), and the year's later steps left
+#: out (``pipeline.compute_packed_resident``)
+FAULTS = ("step_writes_nothing", "half_the_batch_left_out",
+          "an_answer_altered", "later_steps_dropped")
 
 
 def encode_batch(seed: int, i: int, shape: tuple, floor: dict):

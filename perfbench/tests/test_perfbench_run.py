@@ -1,11 +1,15 @@
 """Runs of every cell, and of the shelved backfill, at the tiny size on
 the CPU (the harness's look for a card skipped), the faults that must make
-``correct`` false, the control that must fail the comparison, and the
-command's refusal without a card. The test marked ``cuda`` runs the
-command itself on the card, for each cell of ``BENCHMARK.json``."""
+``correct`` false (in each cell, those its driver declares), a cell of a
+new mix brought by its files alone, the control that must fail the
+comparison, and the command's refusal without a card. The test marked
+``cuda`` runs the command itself on the card, for each cell of
+``BENCHMARK.json``."""
 
+import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -15,7 +19,8 @@ import torch
 from perfbench import control, harness
 from perfbench.drivers import common
 
-from conftest import ROOT, tiny_benchmark, tiny_root
+from conftest import (BENCH, MAX_TINY_BARS, ROOT, bars_a_pass,
+                      cells_with_fault, mix_path, tiny_benchmark, tiny_root)
 
 CELLS = [w["name"] for w in tiny_benchmark()["workloads"]]
 ON_CARD = [w["name"] for w in harness.load_benchmark()["workloads"]]
@@ -62,27 +67,9 @@ def answer_altered(y):
     return y
 
 
-#: the faults a cell of these kinds can have, planted in the program's
-#: factor step (``pipeline._stacked``, under every resident step and every
-#: batch of the host driver)
-FAULTS = {
-    "step_writes_nothing": torch.zeros_like,
-    "half_the_batch_left_out": half_left_out,
-    "an_answer_altered": answer_altered,
-}
-
-
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_broken_step_is_not_correct(root, monkeypatch, cell, fault):
-    from replication_of_minute_frequency_factor_tpu_torch import pipeline
-
-    real = pipeline._stacked
-    monkeypatch.setattr(pipeline, "_stacked",
-                        lambda *a, **k: FAULTS[fault](real(*a, **k)))
-    out = harness.run_cell(harness.resolve(cell, root), 2**31 + 12, 0.05,
-                           False, device="cpu")
-    assert not out["correct"]
+def in_the_step(fault):
+    """``fault`` applied to what the program's factor step returns."""
+    return lambda real: lambda *a, **k: fault(real(*a, **k))
 
 
 def later_steps_dropped(real):
@@ -98,21 +85,109 @@ def later_steps_dropped(real):
     return call
 
 
-YEAR_CELLS = [c for c in CELLS if c.endswith(".year_resident")]
+#: every fault a cell can have, by name: the program function it is
+#: planted in (``pipeline.<name>``; ``_stacked`` is the factor step, under
+#: every resident step and every batch of the host driver) and what it
+#: makes of that function. Each driver's ``FAULTS`` names those that apply
+#: to what it runs, and a cell is tested for its driver's.
+PLANTED = {
+    "step_writes_nothing": ("_stacked", in_the_step(torch.zeros_like)),
+    "half_the_batch_left_out": ("_stacked", in_the_step(half_left_out)),
+    "an_answer_altered": ("_stacked", in_the_step(answer_altered)),
+    "later_steps_dropped": ("compute_packed_resident", later_steps_dropped),
+}
+STEP_FAULTS = sorted(f for f, (at, _) in PLANTED.items() if at == "_stacked")
 
 
-@pytest.mark.parametrize("cell", YEAR_CELLS)
+def plant(monkeypatch, fault: str) -> None:
+    from replication_of_minute_frequency_factor_tpu_torch import pipeline
+
+    at, make = PLANTED[fault]
+    monkeypatch.setattr(pipeline, at, make(getattr(pipeline, at)))
+
+
+def test_each_driver_declares_faults_planted_here():
+    mods = [importlib.import_module(f"perfbench.drivers.{p.stem}")
+            for p in sorted((harness.BENCH_DIR / "drivers").glob("*.py"))]
+    declared = {m.__name__: set(m.FAULTS) for m in mods
+                if hasattr(m, "Driver")}
+    assert declared and all(declared.values()), declared
+    assert set().union(*declared.values()) == set(PLANTED), declared
+
+
+@pytest.mark.parametrize("cell,fault", [
+    pytest.param(cell, fault, id=f"{cell}-{fault}")
+    for fault in STEP_FAULTS for cell in cells_with_fault(fault)])
+def test_a_broken_step_is_not_correct(root, monkeypatch, cell, fault):
+    plant(monkeypatch, fault)
+    out = harness.run_cell(harness.resolve(cell, root), 2**31 + 12, 0.05,
+                           False, device="cpu")
+    assert not out["correct"]
+
+
+@pytest.mark.parametrize("cell", cells_with_fault("later_steps_dropped"))
 def test_a_year_with_its_later_steps_dropped_is_not_correct(root,
                                                             monkeypatch,
                                                             cell):
-    from replication_of_minute_frequency_factor_tpu_torch import pipeline
-
-    monkeypatch.setattr(pipeline, "compute_packed_resident",
-                        later_steps_dropped(pipeline.compute_packed_resident))
+    plant(monkeypatch, "later_steps_dropped")
     for seed in (2**31 + 14, 2**33 + 7):
         out = harness.run_cell(harness.resolve(cell, root), seed, 0.05,
                                False, device="cpu")
         assert not out["correct"]
+
+
+def test_a_new_mix_joins_by_its_files_alone(tmp_path):
+    """A cell whose mix is a new file (a new traffic name, the resident
+    driver, its own ``tiny`` block) on a new configuration with its own
+    ``tiny`` block: ``tiny_root`` shrinks both to their blocks, its
+    driver's faults select it and make it not correct, and its tiny run
+    is correct on the CPU."""
+    src = tmp_path / "src"
+    (src / "perfbench").mkdir(parents=True)
+    for sub in ("configs", "mixes", "metrics"):
+        shutil.copytree(BENCH / sub, src / "perfbench" / sub)
+    full = json.loads(mix_path(ROOT, "year_resident").read_text())
+    full.update(batches=4, days_per_batch=16)
+    del full["tiny"]
+    tiny_mix = {"batches": 2, "days_per_batch": 3, "trace_passes": 1,
+                "check": {"batches": 2, "days_per_batch": 2, "tickers": 10}}
+    mix_path(src, "year_fresh").write_text(json.dumps(
+        dict(full, tiny=tiny_mix)))
+    cfg = json.loads((BENCH / "configs/cn_ashare_5000.json").read_text())
+    (src / "perfbench/configs/cn_fresh.json").write_text(json.dumps(
+        dict(cfg, name="cn_fresh", tiny={"tickers": 16})))
+    name = "cn_fresh.year_fresh"
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "cn_fresh", "source": "a test",
+                             "file": "perfbench/configs/cn_fresh.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": name, "config": "cn_fresh",
+                               "traffic": "year_fresh", "chips": 1,
+                               "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "cn_ashare_5000.year_resident" in m.get("workloads", []):
+            m["workloads"].append(name)
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    root = tiny_root(tmp_path / "tiny", src)
+    assert json.loads(mix_path(root, "year_fresh").read_text()) == {
+        **full, **tiny_mix, "check": {**full["check"], **tiny_mix["check"]}}
+    cell = harness.resolve(name, root)
+    assert cell.config == dict(cfg, name="cn_fresh", tickers=16)
+    assert bars_a_pass(cell) == 2 * 3 * 16 * 240 <= MAX_TINY_BARS
+
+    faults = harness.driver_module(cell).FAULTS
+    assert "later_steps_dropped" in faults
+    assert all(name in cells_with_fault(f, src) for f in faults)
+    out = harness.run_cell(cell, 2**31 + 15, 0.05, False, device="cpu")
+    assert out["correct"] and out["attempted"] > 0
+    assert set(out["metrics"]) == {"setup_s", "resident_days_per_s"}
+    for fault in faults:
+        with pytest.MonkeyPatch.context() as mp:
+            plant(mp, fault)
+            out = harness.run_cell(cell, 2**31 + 15, 0.05, False,
+                                   device="cpu")
+        assert not out["correct"], fault
 
 
 @pytest.mark.parametrize("cell", CELLS)
