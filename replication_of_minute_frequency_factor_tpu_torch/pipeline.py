@@ -175,13 +175,25 @@ def _check_buffer(buf: torch.Tensor, what: str) -> None:
                          f"{tuple(buf.shape)}, expected 1-D uint8")
 
 
+def _bars_of(spec, kind: str) -> int:
+    """The bars (days x tickers x slots) a packed buffer of ``spec``
+    holds: the leading axes of the raw bars, or of the wire's ``dohl``,
+    whose every packing keeps the slot axis."""
+    shape = spec[0 if kind == "raw" else 2][1]
+    return int(np.prod(shape[:-1], dtype=np.int64))
+
+
 def _decode(buf, spec, kind, tracer=None):
     """Unpack a device buffer and decode it when ``kind='wire'``
     (``'raw'`` ships ``(bars f32, mask uint8)``): ``(bars, mask)``, in
     the ``wire.decode`` span of ``tracer`` (None: the process
-    default's)."""
+    default's), labelled with the ``kind`` and, on the span's event
+    alone, the ``bars`` the buffer holds and its length in ``bytes``
+    (host integers: no sync)."""
     tracer = tracer if tracer is not None else _tracer()
-    with tracer("wire.decode"):
+    with tracer("wire.decode", kind=kind,
+                detail={"bars": _bars_of(spec, kind),
+                        "bytes": buf.numel()}):
         arrs = wire.unpack(buf, spec)
         if kind == "wire":
             return wire.decode(*arrs)
@@ -364,17 +376,19 @@ def compute_packed_resident(dbufs, spec, kind: str,
                             session)
 
     return _resident_loop(dbufs, dev, "compute_packed_resident", step,
-                          bool(factor_stats))
+                          bool(factor_stats), kind)
 
 
-def _resident_loop(dbufs, dev, caller: str, step, with_stats: bool):
+def _resident_loop(dbufs, dev, caller: str, step, with_stats: bool,
+                   kind: str):
     """The resident loops' shared frame: check the buffers, run
     ``step(buf, i)`` over them in order into preallocated outputs
     (``[N, *y]``, plus ``[N, *stats]`` when ``with_stats``), and donate
     each buffer once its step is enqueued (on the card, under
     ``Config.donate_buffers``). Each step, with its output write and
     donation, is a ``resident.step`` span of the process default's
-    tracer."""
+    tracer, and counts once in its ``resident.encode_kind{kind=}``
+    counter: a year shipped raw (21 bytes a bar) is never invisible."""
     cfg = get_config()
     dbufs = list(dbufs)
     if not dbufs:
@@ -401,8 +415,10 @@ def _resident_loop(dbufs, dev, caller: str, step, with_stats: bool):
                                  "device")
     n = len(dbufs)
     out = stats = None
-    tracer = _tracer()
+    tel = get_telemetry()
+    tracer = tel.tracer
     for i, buf in enumerate(dbufs):
+        tel.counter("resident.encode_kind", kind=kind)
         with tracer("resident.step"):
             res = step(buf, i)
             y, st = res if with_stats else (res, None)
@@ -462,7 +478,7 @@ def compute_packed_resident_sharded(dbufs, spec, kind: str, mesh,
     with mesh:
         out = _resident_loop(dbufs, mesh.device,
                              "compute_packed_resident_sharded", step,
-                             bool(factor_stats))
+                             bool(factor_stats), kind)
     # this rank's completion watermark, waited for off the caller's
     # thread; gathered over the ranks at meshplane.drain()
     get_telemetry().meshplane.watch_async_mesh(
@@ -558,7 +574,7 @@ def compute_packed_resident_2d(dbufs, spec, kind: str, mesh,
     with mesh:
         out = _resident_loop(dbufs, mesh.device,
                              "compute_packed_resident_2d", step,
-                             bool(factor_stats))
+                             bool(factor_stats), kind)
         carry = xs_carry_handoff_local(state, combine_span_state,
                                        DAYS_AXIS, d_shards)
     carry = {k: carry[k] for k in keys}

@@ -166,15 +166,18 @@ class SpanTracer:
         return start, end
 
     @contextlib.contextmanager
-    def __call__(self, name: str, trace_id: Optional[str] = None,
-                 **labels):
+    def __call__(self, name: str, trace_id: Optional[str] = None, *,
+                 detail: Optional[dict] = None, **labels):
         """Extra ``labels`` ride on the ``span_seconds`` histogram
         observation AND the retained event (schema v3: the
         Chrome/Perfetto export and the JSONL span records carry them
         as args — e.g. ``kind=host_dispatch`` on collective dispatch
         spans, so a host-side span can never be read as on-device
         time); the span NAME, totals and attribution joins stay
-        label-free. ``trace_id`` (schema v2) rides the
+        label-free. ``detail`` holds further labels of the retained
+        event alone, kept off the histograms: values that change from
+        call to call (sizes, byte counts) would split a span's series.
+        ``trace_id`` (schema v2) rides the
         retained event too: request-scoped spans join their request's
         lifecycle in the JSONL export."""
         stack = self._stack()
@@ -193,11 +196,12 @@ class SpanTracer:
                 pair[1].record()
             stack.pop()
             self._record(name, t0, t1 - t0, depth, trace_id, labels, sid,
-                         parent, pair)
+                         parent, pair, detail)
 
     def _record(self, name: str, t0: float, dt: float, depth: int,
                 trace_id: Optional[str], labels: dict, sid: int,
-                parent: Optional[tuple], pair=None) -> None:
+                parent: Optional[tuple], pair=None,
+                detail: Optional[dict] = None) -> None:
         with self._lock:
             self._totals[name] = self._totals.get(name, 0.0) + dt
             self._counts[name] = self._counts.get(name, 0) + 1
@@ -214,9 +218,9 @@ class SpanTracer:
                 }
                 if trace_id is not None:
                     event["trace_id"] = trace_id
-                if labels:
-                    event["labels"] = {str(k): str(v)
-                                       for k, v in labels.items()}
+                if labels or detail:
+                    event["labels"] = {str(k): str(v) for k, v in
+                                       {**labels, **(detail or {})}.items()}
                 self._events.append(event)
             else:
                 self.dropped_spans += 1

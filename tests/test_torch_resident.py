@@ -109,16 +109,21 @@ def test_resident_matches_jax_resident(kind, session):
     _hold_to_jax(f"{session}/{kind}", names, port.numpy(), ref)
 
 
-@pytest.mark.parametrize("kind", ["wire", "raw"])
-def test_each_resident_step_is_the_per_batch_call_bitwise(kind):
+@pytest.mark.parametrize("kind,session", [
+    pytest.param("wire", "cn_ashare_240", id="wire"),
+    pytest.param("raw", "cn_ashare_240", id="raw"),
+    pytest.param("raw", "crypto_1440", id="raw-crypto_1440")])
+def test_each_resident_step_is_the_per_batch_call_bitwise(kind, session):
     """Step i of the loop is the port's ``compute_packed_prepared`` on
-    buffer i, bit for bit (one body, shared by construction)."""
+    buffer i, bit for bit (one body, shared by construction), on the
+    24/7 venue's 1440-slot rows too."""
     names = factor_names()
-    bufs, spec = _year(kind=kind, seed=11)
+    bufs, spec = _year(session, kind=kind, seed=11)
     ys = pl.compute_packed_resident(_port(bufs), spec, kind, names,
-                                    device="cpu").numpy()
+                                    session=session, device="cpu").numpy()
     for i, b in enumerate(bufs):
         one = pl.compute_packed_prepared(b, spec, kind, names,
+                                         session=session,
                                          device="cpu").numpy()
         np.testing.assert_array_equal(_bits(ys[i]), _bits(one))
 
