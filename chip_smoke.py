@@ -30,14 +30,24 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    within the parity tolerances, the pdf ranks bit for bit but in the
    ``PDF_EDGE_EPS`` band, the bits repeating; the pair of launches a
    context makes timed in turns with the plain pair at the first four;
+   and the volume-selection kernel against ``volume_selections_plain`` on
+   the same tensors on the CPU (``torch_cases.volume_tensors``: the
+   crafted edge rows, then drawn ones; every kind of answer,
+   ``torch_cases.VOLUME_ANSWERS``) at the same four shapes and at odd row
+   counts from 1 to 2048 slots: thresholds and share sums bit for bit, the
+   compounds NaN and infinite at the same lanes and within the parity
+   tolerances, the bits repeating; the launch a context makes timed in
+   turns with the plain compositions at the first four;
 4. the main path at full width — ``synth_day`` → ``grid_day`` →
    ``compute_batch`` for all 58 factors, 5000 tickers x 8 days on
-   ``cn_ashare_240`` — through the tiled kernel, one pv_corr launch and
-   two chip-segments launches (launch counts reset just before, read just
-   after), held against the same batch through the plain rolling version,
-   its six corr_* rows against ``pv_corr_plain`` on the batch's card bars
-   and its doc_skew/doc_kurt/doc_pdf* rows against ``moments_plain`` and
-   ``pdf_plain`` on the batch's card intermediates; then the generic-window path,
+   ``cn_ashare_240`` — through the tiled kernel, one pv_corr launch, two
+   chip-segments launches and one volume-selection launch (launch counts
+   reset just before, read just after), held against the same batch
+   through the plain rolling version, its six corr_* rows against
+   ``pv_corr_plain`` on the batch's card bars, its doc_skew/doc_kurt/
+   doc_pdf* rows against ``moments_plain`` and ``pdf_plain`` on the
+   batch's card intermediates and its four mmt_*VolumeRet and three
+   doc_vol*_ratio rows against ``volume_selections_plain``; then the generic-window path,
    ``ops.rolling.rolling_window_stats`` at window 20 on the same batch,
    through the rowwise kernel;
 4c. the packed path at full width: the same batch encoded on the host into
@@ -163,8 +173,9 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    copied to the card pinned and non-blocking, and run by ONE
    ``compute_packed_resident`` call for all 58 factors with
    ``rolling_impl='cuda'`` under ``torch.cuda.set_sync_debug_mode
-   ('error')``, then fetched once. Held: 8 tiled, 8 pv_corr and 16
-   chip-segments launches (counts reset just before, read just after), no
+   ('error')``, then fetched once. Held: 8 tiled, 8 pv_corr, 16
+   chip-segments and 8 volume-selection launches (counts reset just
+   before, read just after), no
    host sync inside the call, batches 0
    and 7 bitwise ``compute_packed_prepared`` on fresh copies of their
    buffers, the donated handles raising ``DonatedBufferError`` on use
@@ -173,8 +184,9 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    ``factor_stats``: each payload byte-identical to ``encode_block`` of
    its raw slice, each stats row bitwise ``factor_stats_block``. Timed:
    the enqueue and the fetch apart, days/s, peak memory, and the tiled,
-   pv_corr and chip-segments kernels at the year's ``[160000, 240]`` on
-   batch 0's decoded bars (its ``DayContext`` intermediates for the last),
+   pv_corr, chip-segments and volume-selection kernels at the year's
+   ``[160000, 240]`` on batch 0's decoded bars (its ``DayContext``
+   intermediates for the last two),
    each held to and timed in turns with its plain versions. 13b, inside phase 8's temporary directory (it runs right
    after 9b): the CLI's ``compute --profile-dir --telemetry-dir`` in this
    process over 16 of phase 8's day files (two tiled launches): the
@@ -278,7 +290,10 @@ the checkout's sources, and runs in phases; any failure exits non-zero:
    ``DayContext`` at the canonical ``(2, 3, 240)`` with seeded inputs and
    ``rolling_impl='torch'``, traced under the ATen op recorder on the card
    and on the CPU: no host sync, and the two fingerprints equal but for
-   the named device-only ops (``DEVICE_ONLY_OPS``, printed). 17b: the 58
+   the named device-only ops (``DEVICE_ONLY_OPS``, printed), once the
+   plain versions' ops of the pv_corr, chip-segments and volume-selection
+   wrappers are set aside for the wrappers' and their one launch each.
+   17b: the 58
    at full width, ``[8, 5000, 240]``, with ``rolling_impl='cuda'`` under
    ``torch.cuda.set_sync_debug_mode("error")``: zero syncs, op counts
    equal to 17a's (no growth with the shape), the five ``mmt_ols_*`` each
@@ -755,6 +770,66 @@ def time_chip_segments(label: str, x, w, m, r, card: str) -> dict:
         f"{plain_each['moments']:.4f} ms, pdf_plain {plain_each['pdf']:.4f} "
         "ms")
     return times
+
+
+def hold_volume_select(label: str, bars, mask, vol_sum) -> float:
+    """The volume-selection kernel (one launch through the wrapper for each
+    of ``torch_cases.VOLUME_ANSWERS``' two sets, every kind at every k the
+    factors use and past the row) against ``volume_selections_plain`` on
+    the same tensors on the CPU (``torch_cases.volume_select_misses``; on
+    the card the plain bottom threshold reads a valid NaN volume at the
+    other end, the card's negation keeping a NaN's sign): the thresholds
+    and share sums bit for bit, the compounds NaN and infinite at the same
+    lanes and within the parity tolerances elsewhere; a second launch
+    repeats the bits. Returns the compounds' max |diff|."""
+    from replication_of_minute_frequency_factor_tpu_torch import kernels
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        volume_select_cuda as vs)
+
+    worst = 0.0
+    for answers in cases.VOLUME_ANSWERS:
+        before = kernels.launch_count("volume_select")
+        got = vs.volume_selections(bars, mask, vol_sum, answers)
+        again = vs.volume_selections(bars, mask, vol_sum, answers)
+        torch.cuda.synchronize()
+        launched_ = kernels.launch_count("volume_select") - before
+        if launched_ != 2:
+            fail(f"{label}: {launched_} volume_select launches for two calls")
+        misses = cases.volume_select_misses(
+            got, vs.volume_selections_plain(bars.cpu(), mask.cpu(),
+                                            vol_sum.cpu(), answers),
+            answers)
+        if misses["exact"] or misses["nonfinite"] or misses["compound"]:
+            fail(f"{label}: the volume_select kernel misses the plain "
+                 f"version on {misses} (answers {answers})")
+        if not cases.same_bits(again, got):
+            fail(f"{label}: a second volume_select launch gave other bits")
+        worst = max(worst, misses["compound_max_abs"])
+    rows, S = math.prod(mask.shape[:-1]), mask.shape[-1]
+    log(f"kernel volume_select {label} [{rows}, {S}]: thresholds and share "
+        f"sums bitwise volume_selections_plain; compounds NaN/inf lanes "
+        f"identical, max |diff| {worst:.3e} within the parity tolerances; "
+        "bits repeat")
+    return worst
+
+
+def time_volume_select(label: str, bars, mask, vol_sum, card: str) -> dict:
+    """The launch a context makes (its five answers) by :func:`time_kernel`
+    against the plain compositions, bound by ``perfbench``'s
+    ``volume_select_roofline_pct`` bytes."""
+    from perfbench.metrics import volume_select_roofline_pct
+    from replication_of_minute_frequency_factor_tpu_torch.models.context \
+        import volume_answers
+    from replication_of_minute_frequency_factor_tpu_torch.ops import (
+        volume_select_cuda as vs)
+
+    rows, S = math.prod(mask.shape[:-1]), mask.shape[-1]
+    answers = volume_answers()
+    return time_kernel(
+        f"volume_select {label} [{rows}, {S}] on {card}",
+        lambda: vs.volume_selections(bars, mask, vol_sum, answers),
+        lambda: vs.volume_selections_plain(bars, mask, vol_sum, answers),
+        volume_select_roofline_pct.least_s(rows, S, len(answers)) * 1e3)
 
 
 def synth_batch(n_tickers: int, n_days: int, seed: int, session=None,
@@ -3438,7 +3513,8 @@ PROFILED_DAYS = 16
 def resident_year(tables, card: str) -> dict:
     """Phase 13a: ``compute_packed_resident`` over a year on the card; see
     the module docstring. Returns the kernels line's entries for the tiled,
-    the pv_corr and the chip-segments kernels on the year's batches."""
+    the pv_corr, the chip-segments and the volume-selection kernels on the
+    year's batches."""
     from replication_of_minute_frequency_factor_tpu_torch import (
         config, kernels, pipeline)
     from replication_of_minute_frequency_factor_tpu_torch.data import (
@@ -3495,6 +3571,7 @@ def resident_year(tables, card: str) -> dict:
     launches = dict(rolling_cuda.launches)
     pv_launches = kernels.launch_count("pv_corr")
     chip_launches = kernels.launch_count("chip_segments")
+    vol_launches = kernels.launch_count("volume_select")
     impl_counts = dict(rolling.IMPL_COUNTS)
     t0 = time.perf_counter()
     fetched = ys.cpu()
@@ -3512,6 +3589,10 @@ def resident_year(tables, card: str) -> dict:
         fail(f"phase 13a: the resident year launched the chip_segments "
              f"kernel {chip_launches} times; expected twice a batch, "
              f"{2 * YEAR_BATCHES}")
+    if vol_launches != YEAR_BATCHES:
+        fail(f"phase 13a: the resident year launched the volume_select "
+             f"kernel {vol_launches} times; expected once a batch, "
+             f"{YEAR_BATCHES}")
     want_shape = (YEAR_BATCHES, len(names), YEAR_DAYS, TICKERS)
     if tuple(fetched.shape) != want_shape:
         fail(f"phase 13a: result {tuple(fetched.shape)}, not {want_shape}")
@@ -3522,7 +3603,8 @@ def resident_year(tables, card: str) -> dict:
     log(f"phase 13a compute_packed_resident (all {len(names)}, "
         f"rolling_impl=cuda) under set_sync_debug_mode('error'): no host "
         f"sync inside the call; launches {launches}, pv_corr "
-        f"{pv_launches}, chip_segments {chip_launches}; enqueue "
+        f"{pv_launches}, chip_segments {chip_launches}, volume_select "
+        f"{vol_launches}; enqueue "
         f"{t_enqueue:.3f} s, one fetch of {fetched.numel() * 4 / 1e6:.1f} "
         f"MB {t_fetch:.3f} s: {n_days / wall:.1f} days/s over {n_days} "
         f"days; the year's copy in (pinned, non-blocking) {t_copy:.3f} s; "
@@ -3623,7 +3705,11 @@ def resident_year(tables, card: str) -> dict:
     chip_line = {"launches": chip_launches, "max_abs_err": hold_chip_segments(
         "phase 13a batch 0", *cargs)["moments_max_abs"],
         **time_chip_segments("phase 13a batch 0", *cargs, card)}
-    del cctx, cargs
+    vargs = (bars, mask, cctx.vol_sum.contiguous())
+    vol_line = {"launches": vol_launches, "max_abs_err": hold_volume_select(
+        "phase 13a batch 0", *vargs),
+        **time_volume_select("phase 13a batch 0", *vargs, card)}
+    del cctx, cargs, vargs
     low = bars[..., 2].reshape(-1, 240).contiguous()
     high = bars[..., 1].reshape(-1, 240).contiguous()
     pm = mask.reshape(-1, 240)
@@ -3639,7 +3725,7 @@ def resident_year(tables, card: str) -> dict:
         f"decoded bars: max_abs_err={err:.3e} vs plain; "
         f"{launches['tiled']} launches for the year ({card})")
     return {"launches": launches["tiled"], "max_abs_err": err,
-            **times}, pv_line, chip_line, year_ctx
+            **times}, pv_line, chip_line, vol_line, year_ctx
 
 
 def device_busy(events):
@@ -4846,7 +4932,8 @@ def trace_tier_path(tables, card: str) -> dict:
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         DayContext, registry)
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
-        chip_segments_cuda, pv_corr_cuda, rolling, rolling_cuda)
+        chip_segments_cuda, pv_corr_cuda, rolling, rolling_cuda,
+        volume_select_cuda)
 
     t_phase = time.perf_counter()
     names = registry.factor_names()
@@ -4863,8 +4950,9 @@ def trace_tier_path(tables, card: str) -> dict:
     _, pv_plain = tt.trace(lambda: pv_corr_cuda.pv_corr(cb, cm))
     _, pv_wrap = tt.trace(lambda: pv_corr_cuda.pv_corr(gb, gm))
     # and the chip family's two intermediates: the plain moments and pdf
-    # walks on the CPU, one launch each on the card
-    chip_plain, chip_wrap = {}, {}
+    # walks on the CPU, one launch each on the card; the volume order
+    # statistics likewise, one launch for all seven of their factors
+    chip_plain, chip_wrap, vol_traced = {}, {}, {}
     for traced, (b, m) in ((chip_plain, (cb, cm)), (chip_wrap, (gb, gm))):
         cctx = DayContext(b, m)
         args = (cctx.eod_ret, cctx.vol_share, cctx.mask)
@@ -4873,6 +4961,13 @@ def trace_tier_path(tables, card: str) -> dict:
             lambda: chip_segments_cuda.segment_moments(*args))[1]
         traced["pdf"] = tt.trace(
             lambda: chip_segments_cuda.pdf_ranks(*args, rank))[1]
+        vargs = (cctx.bars.contiguous(), cctx.mask, cctx.vol_sum,
+                 cctx.volume_answers)
+        vol_traced[b.device.type] = tt.trace(
+            lambda: volume_select_cuda.volume_selections(*vargs))[1]
+    vol_names = ("mmt_top50VolumeRet", "mmt_bottom50VolumeRet",
+                 "mmt_top20VolumeRet", "mmt_bottom20VolumeRet",
+                 "doc_vol10_ratio", "doc_vol5_ratio", "doc_vol50_ratio")
     canon, device_only, n_cpu = {}, {}, 0
     for n in names:
         fn = registry.resolve(n)
@@ -4883,9 +4978,11 @@ def trace_tier_path(tables, card: str) -> dict:
         for t, where in ((tc, "the CPU"), (tg, card)):
             want_pv = 1 if (t is tg and n in pv_corr_cuda.NAMES) else 0
             want_chip = 1 if (t is tg and part is not None) else 0
-            keyed = {k: n for k, n in (("kernel:pv_corr", want_pv),
-                                       ("kernel:chip_segments", want_chip))
-                     if n}
+            want_vol = 1 if (t is tg and n in vol_names) else 0
+            keyed = {k: c for k, c in (("kernel:pv_corr", want_pv),
+                                       ("kernel:chip_segments", want_chip),
+                                       ("kernel:volume_select", want_vol))
+                     if c}
             if t.syncs or t.kernel_launches != keyed or \
                     set(t.impl_counts) - {("torch", "torch")}:
                 fail(f"17a {n} on {where}: syncs {t.syncs}, launches "
@@ -4898,6 +4995,10 @@ def trace_tier_path(tables, card: str) -> dict:
             cpu = tt.add_counts(tt.add_counts(
                 cpu, chip_plain[part].counts(), -1),
                 chip_wrap[part].counts())
+        if n in vol_names:
+            cpu = tt.add_counts(tt.add_counts(
+                cpu, vol_traced["cpu"].counts(), -1),
+                vol_traced["cuda"].counts())
         extra = tt.add_counts(tg.counts(), cpu, -1)
         if any(op not in DEVICE_ONLY_OPS or c < 0
                for op, c in extra.items()):
@@ -5116,7 +5217,8 @@ def main() -> None:
     from replication_of_minute_frequency_factor_tpu_torch.pipeline import (
         compute_packed_prepared)
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
-        chip_segments_cuda, pv_corr_cuda, rolling, rolling_cuda)
+        chip_segments_cuda, pv_corr_cuda, rolling, rolling_cuda,
+        volume_select_cuda)
 
     # 1. device
     smi = subprocess.run(
@@ -5212,6 +5314,22 @@ def main() -> None:
                 chip_line = {"max_abs_err": misses["moments_max_abs"],
                              **times}
         del x, w, m, r
+    # the volume-selection kernel against its plain version at phase 4's
+    # batch, the three year cells' resident steps, odd row counts and
+    # around the work decomposition's changes; timed in turns with the
+    # plain compositions at the first four
+    vol_line = {}
+    for r_, L in ((rows, 240), (160000, 240), (96000, 390), (42000, 1440),
+                  (12347, 240), (13, 390), (4001, 1440), (11, 513),
+                  (7, 1025), (17, 2048), (19, 1)):
+        vb, vm, vsum = cases.volume_tensors(r_ + L, L, r_, device="cuda")
+        err = hold_volume_select("phase 3", vb, vm, vsum)
+        if (r_, L) in ((rows, 240), (160000, 240), (96000, 390),
+                       (42000, 1440)):
+            times = time_volume_select("phase 3", vb, vm, vsum, card)
+            if (r_, L) == (rows, 240):
+                vol_line = {"max_abs_err": err, **times}
+        del vb, vm, vsum
     torch.cuda.empty_cache()
 
     # 4. the main path at full width
@@ -5234,6 +5352,7 @@ def main() -> None:
     launches = dict(rolling_cuda.launches)
     pv_launches = kernels.launch_count("pv_corr")
     chip_launches = kernels.launch_count("chip_segments")
+    vol_launches = kernels.launch_count("volume_select")
     impl_counts = dict(rolling.IMPL_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     walls += wall_times_ms(lambda: compute_batch(
@@ -5298,6 +5417,27 @@ def main() -> None:
         f"lanes identical), the {len(pdfs)} doc_pdf* bitwise pdf_plain but "
         f"{misses['pdf_edge']} lanes in the PDF_EDGE_EPS band, on the "
         "batch's card intermediates")
+    # and the volume order statistics: one launch, the seven factors
+    # against the plain compositions on the batch's tensors on the CPU
+    if vol_launches != 1:
+        fail(f"the main path launched the volume_select kernel "
+             f"{vol_launches} times; expected once")
+    vnames = ("mmt_top50VolumeRet", "mmt_bottom50VolumeRet",
+              "mmt_top20VolumeRet", "mmt_bottom20VolumeRet",
+              "doc_vol10_ratio", "doc_vol5_ratio", "doc_vol50_ratio")
+    vanswers = (("top", 50), ("bottom", 50), ("top", 20), ("bottom", 50),
+                ("share_sum", 10), ("share_sum", 5), ("share_sum", 5))
+    vmisses = cases.volume_select_misses(
+        torch.stack([out[names.index(n)] for n in vnames]),
+        volume_select_cuda.volume_selections_plain(
+            cb.cpu(), cm.cpu(), cctx.vol_sum.cpu(), vanswers), vanswers)
+    if vmisses["exact"] or vmisses["nonfinite"] or vmisses["compound"]:
+        fail(f"compute_batch: the volume-ordered factors miss the plain "
+             f"compositions on {vmisses}")
+    log(f"compute_batch: one volume_select launch; the three doc_vol*_ratio "
+        f"bitwise topk_sum, the four mmt_*VolumeRet within "
+        f"{vmisses['compound_max_abs']:.3e} of the plain compositions (NaN/"
+        "inf lanes identical), on the batch's tensors on the CPU")
     del cb, cm, want, got, ok, cctx, args, grank
 
     ref = compute_batch(bars, mask, device="cuda", rolling_impl="torch")
@@ -5382,8 +5522,8 @@ def main() -> None:
     discovery_path(card)
 
     # 13a. the resident year (13b ran inside phase 8's directory)
-    year_line, year_pv_line, year_chip_line, year_ctx = resident_year(
-        tables, card)
+    year_line, year_pv_line, year_chip_line, year_vol_line, year_ctx = \
+        resident_year(tables, card)
 
     # 14. the sharded resident year on ranks (14c ran inside phase 8's
     # directory)
@@ -5466,7 +5606,18 @@ def main() -> None:
             "library_ms": None,
         } for name, entry in (
             ("chip_segments", {"launches": chip_launches, **chip_line}),
-            ("chip_segments_resident_year", year_chip_line))]}),
+            ("chip_segments_resident_year", year_chip_line))]
+        + [{
+            "name": name,
+            "route": "cuda",
+            "source": "replication_of_minute_frequency_factor_tpu_torch/"
+                      "csrc/volume_select.cu",
+            "replaces": None,
+            **entry,
+            "library_ms": None,
+        } for name, entry in (
+            ("volume_select", {"launches": vol_launches, **vol_line}),
+            ("volume_select_resident_year", year_vol_line))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -71,6 +71,10 @@ LIBRARIES = {
         "chip_segments.cu",
         {"chip_segments": (_PTR,) * 5 + (_LONG, _INT, _INT, _PTR, _PTR)},
         "kernel:chip_segments"),
+    "volume_select": Library(
+        "volume_select.cu",
+        {"volume_select": (_PTR,) * 4 + (_LONG, _INT, _PTR, _INT, _PTR)},
+        "kernel:volume_select"),
 }
 
 #: the export of every library that names a ``cudaError_t`` code

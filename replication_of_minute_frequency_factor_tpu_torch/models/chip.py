@@ -11,7 +11,10 @@ package's ``models/chip.py``.
 Eager torch does not merge repeated subexpressions as XLA does, so what
 several factors share is memoised in the context: the skew and kurtosis of
 the (return, share) segments for the three moment factors, the five
-``doc_pdf*`` walks together, and one ``topk_sum`` per k. The two segment
+``doc_pdf*`` walks together, and the three ``doc_vol*_ratio`` share sums
+with the momentum family's volume selections
+(``DayContext.volume_selections``: one launch of
+``ops.volume_select_cuda``'s kernel on the card). The two segment
 intermediates are ``ops.chip_segments_cuda``'s: one launch each of the
 hand-written kernel on the card, the plain compositions of
 ``ops/segments.py`` on the CPU; their ``ctx.*`` spans are labelled with the
@@ -23,7 +26,6 @@ first (a no-op on the context's own tensors).
 from __future__ import annotations
 
 from ..ops import chip_segments_cuda
-from ..ops.ranking import topk_sum
 from .context import DayContext
 from .registry import finalize_class, register, stream_requirement
 
@@ -48,8 +50,9 @@ def _pdf(ctx: DayContext, threshold: float):
 
 
 def _topk_share(ctx: DayContext, k: int):
-    return ctx._get(("chip_topk_sum", k),
-                    lambda: topk_sum(ctx.vol_share, ctx.mask, k))
+    """Sum of the k largest volume shares, largest first (``topk_sum``):
+    one row of ``ctx.volume_selections``."""
+    return ctx.volume_selection("share_sum", k)
 
 
 @register("doc_kurt")

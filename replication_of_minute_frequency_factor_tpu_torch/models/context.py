@@ -29,6 +29,20 @@ from ..ops import (
 from ..utils.upload import to_device
 
 
+def volume_answers(replicate_quirks: bool = True):
+    """The ``(kind, k)`` of each row of ``DayContext.volume_selections``
+    (kinds as ``ops.volume_select_cuda.KINDS``), each pair once: the
+    compounds of mmt_top50/bottom50/top20/bottom20VolumeRet and the share
+    sums of doc_vol10/vol5/vol50_ratio. Under ``replicate_quirks`` the
+    bottom-20 is the bottom-50 (quirk Q1) and the top-50 sum the top-5
+    (Q3), so five answers serve the seven factors."""
+    q = replicate_quirks
+    return tuple(dict.fromkeys((
+        ("top", 50), ("bottom", 50), ("top", 20),
+        ("bottom", 50 if q else 20), ("share_sum", 10), ("share_sum", 5),
+        ("share_sum", 5 if q else 50))))
+
+
 class DayContext:
     """Lazily-memoised intermediates over ``bars [..., T, S, 5]``.
 
@@ -133,11 +147,6 @@ class DayContext:
                          lambda: (self.close - self.open) / self.open)
 
     @property
-    def ratio_co(self):
-        """close/open per bar (momentum products)."""
-        return self._get("ratio_co", lambda: self.close / self.open)
-
-    @property
     def range_hl(self):
         return self._get("range_hl", lambda: self.high / self.low)
 
@@ -177,6 +186,34 @@ class DayContext:
     def vol_sum(self):
         return self._get("vol_sum",
                          lambda: masked_sum(self.volume, self.mask))
+
+    @property
+    def volume_answers(self):
+        """:func:`volume_answers` under this context's
+        ``replicate_quirks``."""
+        return volume_answers(self.replicate_quirks)
+
+    @property
+    def volume_selections(self):
+        """The volume order statistics of every row, ``[len(volume_answers),
+        ..., T]`` in :attr:`volume_answers` order, computed together: one
+        launch of the hand-written kernel for CUDA bars, the plain
+        compositions for CPU bars. The ``ctx.volume_selections`` span
+        carries :meth:`_kernel_labels` and the number of ``answers``."""
+        from ..ops import volume_select_cuda
+
+        answers = self.volume_answers
+        return self._get(
+            "volume_selections",
+            lambda: volume_select_cuda.volume_selections(
+                self.bars.contiguous(), self.mask.contiguous(),
+                self.vol_sum.contiguous(), answers),
+            answers=len(answers), **self._kernel_labels())
+
+    def volume_selection(self, kind: str, k: int):
+        """``[..., T]``: the answer ``(kind, k)`` of
+        :attr:`volume_selections`."""
+        return self.volume_selections[self.volume_answers.index((kind, k))]
 
     @property
     def vol_share(self):

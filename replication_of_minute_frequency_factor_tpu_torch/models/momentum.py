@@ -12,14 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import (
-    masked_first,
-    masked_last,
-    masked_mean,
-    masked_product,
-    bottomk_threshold,
-    topk_threshold,
-)
+from ..ops import masked_first, masked_last, masked_mean
 from .context import DayContext
 from .registry import finalize_class, register, stream_requirement
 
@@ -159,15 +152,10 @@ def mmt_ols_beta_zscore_last(ctx: DayContext):
 # --- volume-conditioned momentum (ref :379-480) ---------------------------
 
 def _volume_ret(ctx: DayContext, k: int, largest: bool):
-    vol = ctx.volume
-    if largest:
-        thr = topk_threshold(vol, ctx.mask, k)
-        sel = ctx.mask & (vol >= thr[..., None])
-    else:
-        thr = bottomk_threshold(vol, ctx.mask, k)
-        sel = ctx.mask & (vol <= thr[..., None])
-    out = masked_product(ctx.ratio_co, sel) - 1.0
-    return torch.where(ctx.has_bars, out, _NAN)
+    """prod(close/open) - 1 over the bars whose volume is among the k
+    largest (smallest), ties at the threshold included; NaN on a day
+    without bars. One row of ``ctx.volume_selections``."""
+    return ctx.volume_selection("top" if largest else "bottom", k)
 
 
 @register("mmt_top50VolumeRet")

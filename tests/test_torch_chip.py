@@ -226,12 +226,15 @@ def test_chip_factors_share_one_sort_per_intermediate(monkeypatch):
     """A context calls each segment intermediate's wrapper once
     (``ops.chip_segments_cuda``: the three moment factors one
     ``segment_moments``, the five doc_pdf* one ``pdf_ranks``, each one
-    sort), and doc_vol5/doc_vol50 (quirk Q3) share one top-k."""
+    sort), and the three doc_vol*_ratio one ``volume_selections``
+    (``ops.volume_select_cuda``: one order of each row's volume for every
+    k; doc_vol5/doc_vol50 share one answer under quirk Q3)."""
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
-        chip_segments_cuda as cs)
+        chip_segments_cuda as cs, volume_select_cuda as vs)
 
     calls = {"moments": 0, "pdf": 0, "topk": 0}
-    moments, pdf, topk = cs.segment_moments, cs.pdf_ranks, chip.topk_sum
+    moments, pdf, topk = cs.segment_moments, cs.pdf_ranks, \
+        vs.volume_selections
 
     def count(key, fn):
         def wrapped(*a, **kw):
@@ -241,12 +244,12 @@ def test_chip_factors_share_one_sort_per_intermediate(monkeypatch):
 
     monkeypatch.setattr(cs, "segment_moments", count("moments", moments))
     monkeypatch.setattr(cs, "pdf_ranks", count("pdf", pdf))
-    monkeypatch.setattr(chip, "topk_sum", count("topk", topk))
+    monkeypatch.setattr(vs, "volume_selections", count("topk", topk))
     bars, mask = _synth_batch(n_codes=4, n_days=1)
     names = tuple(n for n in chip.__dict__ if n.startswith("doc_"))
     assert len(names) == 11
     out = compute_batch(bars, mask, names=names, device="cpu")
-    assert calls == {"moments": 1, "pdf": 1, "topk": 2}
+    assert calls == {"moments": 1, "pdf": 1, "topk": 1}
     assert torch.equal(out[names.index("doc_std")],
                        out[names.index("doc_skew")])
     assert torch.equal(out[names.index("doc_vol50_ratio")],

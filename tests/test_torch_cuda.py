@@ -1051,23 +1051,33 @@ def test_trace_tier_on_the_card_sees_no_sync_and_counts_the_kernel():
     plain version's ops, for the wrapper's. So does the chip family's
     kernel, under ``kernel:chip_segments``: the three moment factors in
     place of the plain moments, the five doc_pdf* in place of the plain
-    pdf walks."""
+    pdf walks. And the volume order statistics' kernel, under
+    ``kernel:volume_select``: each of the four mmt_*VolumeRet and the
+    three doc_vol*_ratio in place of the plain compositions of every
+    answer."""
     _card()
     from replication_of_minute_frequency_factor_tpu_torch.analysis import (
         trace_tier as tt)
     from replication_of_minute_frequency_factor_tpu_torch.models import (
         registry)
     from replication_of_minute_frequency_factor_tpu_torch.ops import (
-        chip_segments_cuda, pv_corr_cuda)
+        chip_segments_cuda, pv_corr_cuda, volume_select_cuda)
 
     cb, cm = tt.canonical_inputs()
     gb, gm = cb.cuda(), cm.cuda()
     _, pv_plain = tt.trace(lambda: pv_corr_cuda.pv_corr(cb, cm))
-    chip_args = {}
+    chip_args, vol_args = {}, {}
     for dev, (b, m) in (("cpu", (cb, cm)), ("cuda", (gb, gm))):
         ctx = DayContext(b, m)
         chip_args[dev] = (ctx.eod_ret, ctx.vol_share, ctx.mask,
                           ctx.eod_ret_global_rank)
+        vol_args[dev] = (ctx.bars.contiguous(), ctx.mask, ctx.vol_sum,
+                         ctx.volume_answers)
+    vol_names = ("mmt_top50VolumeRet", "mmt_bottom50VolumeRet",
+                 "mmt_top20VolumeRet", "mmt_bottom20VolumeRet",
+                 "doc_vol10_ratio", "doc_vol5_ratio", "doc_vol50_ratio")
+    _, vol_plain = tt.trace(lambda: volume_select_cuda.volume_selections(
+        *vol_args["cpu"]))
     chip_plain = {
         "moments": tt.trace(lambda: chip_segments_cuda.segment_moments(
             *chip_args["cpu"][:3]))[1],
@@ -1084,6 +1094,9 @@ def test_trace_tier_on_the_card_sees_no_sync_and_counts_the_kernel():
                 *chip_args["cuda"]))[1]}
         for t in chip_wrap.values():
             assert t.kernel_launches == {"kernel:chip_segments": 1}
+        _, vol_wrap = tt.trace(lambda: volume_select_cuda.volume_selections(
+            *vol_args["cuda"]))
+        assert vol_wrap.kernel_launches == {"kernel:volume_select": 1}
         for n in registry.factor_names():
             fn = registry.resolve(n)
             _, tc = tt.trace_kernel(fn, cb, cm, "torch")
@@ -1101,6 +1114,9 @@ def test_trace_tier_on_the_card_sees_no_sync_and_counts_the_kernel():
                 want = tt.add_counts(tt.add_counts(
                     want, chip_plain[part].counts(), -1),
                     chip_wrap[part].counts())
+            if n in vol_names:
+                want = tt.add_counts(tt.add_counts(
+                    want, vol_plain.counts(), -1), vol_wrap.counts())
             assert tg.counts() == dict(sorted(want.items())), n
         _, tk = tt.trace_kernel(registry.resolve("mmt_ols_qrs"), gb, gm,
                                 "cuda")

@@ -30,9 +30,11 @@ from replication_of_minute_frequency_factor_tpu_torch.analysis import (
     trace_tier)
 from replication_of_minute_frequency_factor_tpu_torch.models import registry
 from replication_of_minute_frequency_factor_tpu_torch.ops import (
-    chip_segments_cuda, pv_corr_cuda, rolling, rolling_cuda)
+    chip_segments_cuda, pv_corr_cuda, rolling, rolling_cuda,
+    volume_select_cuda)
 from torch_cases import (
-    pv_corr_rows, same_bits, segment_tensors, stand_in_kernels)
+    VOLUME_ANSWERS, pv_corr_rows, same_bits, segment_tensors,
+    stand_in_kernels, volume_tensors)
 
 LIBRARIES = tuple(kernels.LIBRARIES)
 ENTRIES = tuple((name, entry) for name, lib in kernels.LIBRARIES.items()
@@ -41,7 +43,11 @@ ENTRIES = tuple((name, entry) for name, lib in kernels.LIBRARIES.items()
 FAMILIES = {"pv_corr": pv_corr_cuda.NAMES,
             "chip_segments": ("doc_skew", "doc_kurt", "doc_std", "doc_pdf60",
                               "doc_pdf70", "doc_pdf80", "doc_pdf90",
-                              "doc_pdf95")}
+                              "doc_pdf95"),
+            "volume_select": ("mmt_top50VolumeRet", "mmt_bottom50VolumeRet",
+                              "mmt_top20VolumeRet", "mmt_bottom20VolumeRet",
+                              "doc_vol10_ratio", "doc_vol5_ratio",
+                              "doc_vol50_ratio")}
 
 
 def _calls(name):
@@ -60,6 +66,11 @@ def _calls(name):
                  lambda b, m: pv_corr_cuda.pv_corr_plain(b[..., 3],
                                                          b[..., 4], m),
                  (bars, mask))]
+    if name == "volume_select":
+        return [(lambda *a: volume_select_cuda.volume_selections(*a, answers),
+                 lambda *a: volume_select_cuda.volume_selections_plain(
+                     *a, answers), volume_tensors(1, 64, rows=12))
+                for answers in VOLUME_ANSWERS]
     assert name == "chip_segments"
     x, w, m, r = segment_tensors(1, 64, rows=12)
     return [(chip_segments_cuda.segment_moments,
@@ -229,11 +240,12 @@ def test_on_the_cpu_no_trace_counts_a_launch(name):
 @pytest.mark.parametrize("name", LIBRARIES)
 def test_engines_load_each_library_they_launch(monkeypatch, name):
     """``kernels.load_for``, which the serve and stream engines call before
-    their first request: on a card the two later kernels whatever the
+    their first request: on a card the row kernels whatever the
     engine's ``rolling_impl``, and the rolling one only under "cuda";
     nothing on the CPU."""
-    loads = {"torch": {"pv_corr", "chip_segments"},
-             "cuda": {"rolling_moments", "pv_corr", "chip_segments"}}
+    loads = {"torch": {"pv_corr", "chip_segments", "volume_select"},
+             "cuda": {"rolling_moments", "pv_corr", "chip_segments",
+                      "volume_select"}}
     loaded = []
     monkeypatch.setattr(kernels, "load", loaded.append)
     kernels.load_for(torch.device("cpu"), "cuda")

@@ -186,6 +186,134 @@ def chip_segments_misses(got, want, rank, weights, mask) -> dict:
     return out
 
 
+#: the answers the volume-selection tests ask for, in two launches of at
+#: most eight: the seven the factors use (quirks off), then every kind at
+#: k = 1, at the factors' k and past the longest row
+VOLUME_ANSWERS = (
+    (("top", 50), ("bottom", 50), ("top", 20), ("bottom", 20),
+     ("share_sum", 10), ("share_sum", 5), ("share_sum", 50)),
+    (("top_threshold", 50), ("bottom_threshold", 50), ("top_threshold", 1),
+     ("bottom_threshold", 1), ("share_sum", 1), ("top", 3000),
+     ("bottom", 1), ("share_sum", 3000)))
+#: :func:`volume_rows`' crafted rows, by what they hold
+VOLUME_ROWS = {"ties": 0, "empty": 1, "few": 2, "zero_volume": 3,
+               "nan_inf_volume": 4, "odd_prices": 5, "zero_sum": 6,
+               "negative_sum": 7, "one_bar": 8, "signed_zeros": 9,
+               "nan_sum": 10, "inf_volume": 11}
+
+
+def volume_rows(seed: int, S: int, rows: int = 24):
+    """``(bars [rows, S, 5], mask [rows, S], vol_sum [rows])`` numpy f32 /
+    bool for the volume order statistics: board-lot volumes with heavy
+    ties and prices near 10 with small returns (``make_batch``'s recipe),
+    ``vol_sum`` the masked sum in f32 as ``DayContext.vol_sum`` takes it.
+    The first rows (as many as ``rows`` allows) are crafted, by
+    :data:`VOLUME_ROWS`: volumes of few values, an all-invalid row, fewer
+    valid lanes than k, a zero-volume day (shares 0/0), valid NaN and
+    infinite volumes of both signs, zero / NaN / infinite prices, signed
+    volumes summing to zero and to a negative sum, one bar, signed zeros,
+    a NaN sum, and a row whose one valid infinite volume makes the sum
+    infinite; garbage in the invalid lanes."""
+    rng = np.random.default_rng([seed, S, 0x5e1])
+    shape = (rows, S)
+    close = 10.0 * np.exp(np.cumsum(rng.standard_normal(shape) * 1e-3, -1))
+    open_ = close * (1 + rng.standard_normal(shape) * 1e-4)
+    bars = np.stack([open_, np.maximum(open_, close) * 1.0002,
+                     np.minimum(open_, close) * 0.9998, close,
+                     rng.integers(0, 40, shape) * 100.0], axis=-1)
+    bars = np.round(bars, 2).astype(np.float32)
+    mask = rng.random(shape) < 0.9
+    vol = bars[..., 4]
+    vol[~mask] = rng.normal(0, 1e6, int((~mask).sum()))
+    r = VOLUME_ROWS
+    lanes = np.arange(S)
+    crafted = {
+        "ties": lambda i: vol.__setitem__(i, lanes % 3 * 100.0),
+        "empty": lambda i: mask.__setitem__(i, False),
+        "few": lambda i: mask.__setitem__(i, lanes < min(3, S)),
+        "zero_volume": lambda i: vol.__setitem__(
+            i, np.where(lanes % 2, -0.0, 0.0)),
+        "nan_inf_volume": lambda i: vol[i].__setitem__(
+            slice(0, 6), np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0,
+                                   -0.0], np.float32)[:S]),
+        "odd_prices": lambda i: bars[i, :, :4].__setitem__(
+            slice(0, 6), np.array([[0.0] * 4, [10.0, 10, 10, np.nan],
+                                   [10.0, 10, 10, np.inf], [0.0, 0, 0, 5.0],
+                                   [np.inf] * 4, [-0.0, 0, 0, 0.0]],
+                                  np.float32)[:S]),
+        "zero_sum": lambda i: vol.__setitem__(
+            i, np.where(lanes % 2, -1.0, 1.0) * (lanes // 2 * 100.0 + 100)),
+        "negative_sum": lambda i: vol.__setitem__(
+            i, -(rng.integers(1, 40, S) * 100.0)),
+        "one_bar": lambda i: mask.__setitem__(i, lanes == S // 2),
+        "signed_zeros": lambda i: vol.__setitem__(
+            i, np.where(lanes % 3 == 0, -0.0, np.where(lanes % 3 == 1, 0.0,
+                                                       100.0))),
+        "nan_sum": lambda i: vol[i].__setitem__(slice(S // 2, S // 2 + 1),
+                                                np.nan),
+        "inf_volume": lambda i: vol[i].__setitem__(slice(0, 1), np.inf),
+    }
+    for name, i in r.items():
+        if i < rows:
+            crafted[name](i)
+    for name in ("zero_sum", "nan_inf_volume", "nan_sum", "inf_volume"):
+        if r[name] < rows:  # every lane of the row valid
+            mask[r[name]] = True
+    if r["zero_sum"] < rows and S % 2:
+        mask[r["zero_sum"], -1] = False  # the unpaired lane
+    vol_sum = torch.where(torch.from_numpy(mask), torch.from_numpy(vol),
+                          0.0).sum(-1).numpy()
+    return bars, mask, vol_sum.astype(np.float32)
+
+
+def volume_tensors(seed: int, S: int, rows: int = 24, device="cpu"):
+    """:func:`volume_rows` as tensors on ``device``."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in volume_rows(seed, S, rows))
+
+
+def volume_select_misses(got, want, answers) -> dict:
+    """How the volume-selection kernel's ``got [len(answers), ...]`` misses
+    the plain version's ``want`` on the same tensors, in lanes, counted on
+    ``want``'s device (each count is 0 where the kernel holds):
+
+    - ``exact``: a threshold or share sum not bit for bit the plain one
+      (any two NaNs equal);
+    - ``nonfinite``: a compound NaN or infinite where the plain one is
+      not, or the reverse, or an infinity of the other sign;
+    - ``compound``: a finite compound outside tests/test_parity.py's
+      ``mmt_*VolumeRet`` tolerances (the kernel multiplies in f64 and in
+      another order);
+
+    and, for the record, ``compound_max_abs`` (the largest finite gap)."""
+    from replication_of_minute_frequency_factor_tpu_torch.fuzz import (
+        comparator)
+
+    got = got.to(want.device)
+    atol = comparator.ATOL["mmt_top50VolumeRet"]
+    rtol = comparator.RTOL_OVERRIDE.get("mmt_top50VolumeRet",
+                                        comparator.RTOL["default"])
+    out = {"exact": 0, "nonfinite": 0, "compound": 0,
+           "compound_max_abs": 0.0}
+    for q, (kind, _) in enumerate(answers):
+        a, b = got[q].reshape(-1), want[q].reshape(-1)
+        if kind not in ("top", "bottom"):
+            off = (a.view(torch.int32) != b.view(torch.int32)) & \
+                ~(torch.isnan(a) & torch.isnan(b))
+            out["exact"] += int(off.sum())
+            continue
+        bad = (torch.isnan(a) != torch.isnan(b)) | \
+            (torch.isinf(a) != torch.isinf(b)) | (torch.isinf(b) & (a != b))
+        out["nonfinite"] += int(bad.sum())
+        ok = torch.isfinite(a) & torch.isfinite(b)
+        gap = (a[ok] - b[ok]).abs()
+        out["compound"] += int((gap > atol + rtol * b[ok].abs()).sum())
+        if gap.numel():
+            out["compound_max_abs"] = max(out["compound_max_abs"],
+                                          float(gap.max()))
+    return out
+
+
 #: the rows of :func:`pv_corr_rows` whose exact answer is NaN only under
 #: the ``constant_window`` pin's "degenerate" reading: a constant close or
 #: volume, whose correlations under "noise" are rounding noise by design
