@@ -19,12 +19,12 @@ from ..data.minute import F_CLOSE, F_HIGH, F_LOW, F_OPEN, F_VOLUME
 from ..markets import get_session
 from ..ops import (
     masked_last,
-    masked_mean,
-    masked_std,
+    masked_moments,
     masked_sum,
     pct_change_valid,
     rank_average,
     rolling_window_stats,
+    var_of,
 )
 from ..utils.upload import to_device
 
@@ -221,6 +221,15 @@ class DayContext:
         return self._get(
             "vol_share", lambda: self.volume / self.vol_sum[..., None])
 
+    def moments(self, series: str):
+        """``(n, mean, sums)`` of the per-bar series ``self.<series>``
+        (``ret_co`` or ``vol_share``): :func:`..ops.masked_moments` over
+        the mask, counted by ``n_bars``, the central sums of orders 2, 3
+        and 4 from one moment pass that the series' skew, kurtosis, their
+        ratio and (for ``ret_co``) the std all finish."""
+        return self._get(("moments", series), lambda: masked_moments(
+            getattr(self, series), self.mask, self.n_bars))
+
     @property
     def last_close(self):
         """Last present bar's close, ``[..., T]`` — the end-of-day anchor
@@ -300,9 +309,8 @@ class DayContext:
         def f():
             st = self.rolling50
             valid, beta = st["valid"], self.rolling_beta
-            n = valid.sum(dim=-1)
-            mean = masked_mean(beta, valid)
-            std = masked_std(beta, valid)
+            mo = n, mean, _ = masked_moments(beta, valid, orders=(2,))
+            std = torch.sqrt(var_of(mo))
             last = masked_last(beta, valid)
             scale = torch.maximum(mean.abs(), last.abs())
             eps = torch.finfo(torch.float32).eps

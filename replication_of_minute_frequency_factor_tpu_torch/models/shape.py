@@ -6,7 +6,7 @@ biased g1, kurtosis biased Fisher excess (polars defaults, quirk Q11).
 
 from __future__ import annotations
 
-from ..ops import masked_kurtosis, masked_skew
+from ..ops import kurtosis_of, skew_of
 from .context import DayContext
 from .registry import finalize_class, register, stream_requirement
 
@@ -14,38 +14,39 @@ from .registry import finalize_class, register, stream_requirement
 @register("shape_skew")
 def shape_skew(ctx: DayContext):
     """skew(close/open - 1). Ref :647-657."""
-    return masked_skew(ctx.ret_co, ctx.mask)
+    return skew_of(ctx.moments("ret_co"))
 
 
 @register("shape_kurt")
 def shape_kurt(ctx: DayContext):
     """kurtosis(close/open - 1). Ref :660-670."""
-    return masked_kurtosis(ctx.ret_co, ctx.mask)
+    return kurtosis_of(ctx.moments("ret_co"))
 
 
 @register("shape_skratio")
 def shape_skratio(ctx: DayContext):
     """skew/kurtosis of minute returns. Ref :673-687."""
-    return masked_skew(ctx.ret_co, ctx.mask) / masked_kurtosis(ctx.ret_co, ctx.mask)
+    m = ctx.moments("ret_co")
+    return skew_of(m) / kurtosis_of(m)
 
 
 @register("shape_skewVol")
 def shape_skewVol(ctx: DayContext):
     """skew of volume share. Ref :690-700."""
-    return masked_skew(ctx.vol_share, ctx.mask)
+    return skew_of(ctx.moments("vol_share"))
 
 
 @register("shape_kurtVol")
 def shape_kurtVol(ctx: DayContext):
     """kurtosis of volume share. Ref :703-713."""
-    return masked_kurtosis(ctx.vol_share, ctx.mask)
+    return kurtosis_of(ctx.moments("vol_share"))
 
 
 @register("shape_skratioVol")
 def shape_skratioVol(ctx: DayContext):
     """skew/kurtosis of volume share. Ref :716-729."""
-    return masked_skew(ctx.vol_share, ctx.mask) / masked_kurtosis(
-        ctx.vol_share, ctx.mask)
+    m = ctx.moments("vol_share")
+    return skew_of(m) / kurtosis_of(m)
 
 
 # --- streaming readiness: moments exist with the group (one

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import masked_std
+from ..ops import masked_moments, masked_std, var_of
 from .context import DayContext
 from .registry import finalize_class, register, stream_requirement
 
@@ -31,21 +31,31 @@ def vol_range1min(ctx: DayContext):
 @register("vol_return1min")
 def vol_return1min(ctx: DayContext):
     """std of close/open - 1. Ref :518-534."""
-    return masked_std(ctx.ret_co, ctx.mask)
+    return _return_std(ctx)
+
+
+def _return_std(ctx: DayContext):
+    """std of close/open - 1, memoised: vol_return1min's value and the
+    up/down ratios' denominator, from the moment pass of ``ret_co`` that
+    the shape factors read."""
+    return ctx._get("ret_co_std",
+                    lambda: torch.sqrt(var_of(ctx.moments("ret_co"))))
 
 
 def _signed_vol(ctx: DayContext, positive: bool):
-    """std of same-sign returns, null->0 (ref fill_null at :557,611).
+    """std of same-sign returns, null->0 (ref fill_null at :557,611),
+    memoised: the up/down vol and its ratio read one.
 
     The group exists whenever the stock traded at all, so <2 same-sign bars
     gives 0, while an absent stock gives NaN.
     """
-    ret = ctx.ret_co
-    sel = ctx.mask & ((ret > 0) if positive else (ret < 0))
-    n_sel = sel.sum(dim=-1)
-    s = masked_std(ret, sel)
-    out = torch.where(n_sel < 2, 0.0, s)
-    return torch.where(ctx.has_bars, out, _NAN)
+    def f():
+        ret = ctx.ret_co
+        sel = ctx.mask & ((ret > 0) if positive else (ret < 0))
+        mo = n_sel, _, _ = masked_moments(ret, sel, orders=(2,))
+        out = torch.where(n_sel < 2, 0.0, torch.sqrt(var_of(mo)))
+        return torch.where(ctx.has_bars, out, _NAN)
+    return ctx._get(("signed_vol", "up" if positive else "down"), f)
 
 
 @register("vol_upVol")
@@ -57,7 +67,7 @@ def vol_upVol(ctx: DayContext):
 @register("vol_upRatio")
 def vol_upRatio(ctx: DayContext):
     """Upside volatility / total volatility. Ref :563-588."""
-    return _signed_vol(ctx, True) / masked_std(ctx.ret_co, ctx.mask)
+    return _signed_vol(ctx, True) / _return_std(ctx)
 
 
 @register("vol_downVol")
@@ -69,7 +79,7 @@ def vol_downVol(ctx: DayContext):
 @register("vol_downRatio")
 def vol_downRatio(ctx: DayContext):
     """Downside volatility / total volatility. Ref :617-642."""
-    return _signed_vol(ctx, False) / masked_std(ctx.ret_co, ctx.mask)
+    return _signed_vol(ctx, False) / _return_std(ctx)
 
 
 # --- streaming readiness ----------------------------------------

@@ -15,14 +15,18 @@ from .masked import (  # noqa: F401
     masked_max,
     masked_mean,
     masked_min,
+    masked_moments,
     masked_product,
     masked_skew,
     masked_std,
     masked_sum,
     masked_var,
     ffill,
+    kurtosis_of,
     pct_change_valid,
     shift_valid,
+    skew_of,
+    var_of,
 )
 from .ranking import (  # noqa: F401
     bottomk_threshold,

@@ -39,29 +39,70 @@ def masked_sum(x, mask):
 
 
 def masked_mean(x, mask):
-    n = count(mask)
-    s = masked_sum(x, mask)
-    return torch.where(n > 0, s / n.clamp(min=1), _NAN)
+    return _mean(x, mask, count(mask))
 
 
-def _central_moment(x, mask, mu, k):
+def _mean(x, mask, n):
+    return torch.where(n > 0, masked_sum(x, mask) / n.clamp(min=1), _NAN)
+
+
+def masked_moments(x, mask, n=None, orders=(2, 3, 4)):
+    """``(n, mean, sums)``: the count of ``mask``'s lanes (``count(mask)``
+    unless given), the mean of ``x`` over them (NaN where there are none)
+    and ``sums[k]``, the sum of their central powers of each order ``k``
+    in ``orders`` (2, 3 or 4). The two-pass moment pass that
+    :func:`var_of`, :func:`skew_of` and :func:`kurtosis_of` finish.
+
+    The powers are products of ``d*d``: torch's pow by 2 and by 3 is
+    ``d*d`` and ``d*d*d`` on the CPU and the card alike, and the fourth is
+    ``(d*d)*(d*d)``, the repeated squaring jnp's integer power lowers to
+    (torch's CPU ``pow(d, 4)`` runs the vector pow on whole 32-lane chunks
+    and the scalar pow on the rest, so its bits would follow the tensor's
+    length: a rank's ticker block vs the whole batch)."""
+    if n is None:
+        n = count(mask)
+    mu = _mean(x, mask, n)
     d = torch.where(mask, x - mu[..., None], 0.0)
-    if k == 4:
-        # (d^2)^2, the repeated squaring jnp's integer power lowers to;
-        # torch's CPU pow(d, 4) runs the vector pow on whole 32-lane
-        # chunks and the scalar pow on the rest, so its bits would follow
-        # the tensor's length (a rank's ticker block vs the whole batch)
-        d2 = d * d
-        return (d2 * d2).sum(dim=-1)
-    return (d**k).sum(dim=-1)
+    d2 = d * d
+    return n, mu, {k: (d2 if k == 2 else d2 * (d if k == 3 else d2)).sum(
+        dim=-1) for k in orders}
+
+
+def var_of(moments, ddof: int = 1):
+    """The variance from :func:`masked_moments` (with order 2); NaN where
+    the count is at most ``ddof``."""
+    n, _, s = moments
+    denom = (n - ddof).clamp(min=1)
+    return torch.where(n > ddof, s[2] / denom, _NAN)
+
+
+def skew_of(moments):
+    """Biased Fisher-Pearson g1 from :func:`masked_moments` (with orders
+    2 and 3); NaN where the count is 0."""
+    n, _, s = moments
+    nn = n.clamp(min=1)
+    m2 = s[2] / nn
+    m3 = s[3] / nn
+    # m2^1.5 as m2 * sqrt(m2): both correctly rounded on every path, where
+    # torch's CPU pow(m2, 1.5) differs between its vector and scalar
+    # paths, so its bits would follow the tensor's length
+    g1 = m3 / (m2 * torch.sqrt(m2))  # m2 == 0 -> NaN/inf, as polars
+    return torch.where(n > 0, g1, _NAN)
+
+
+def kurtosis_of(moments):
+    """Biased Fisher excess kurtosis from :func:`masked_moments` (with
+    orders 2 and 4); NaN where the count is 0."""
+    n, _, s = moments
+    nn = n.clamp(min=1)
+    m2 = s[2] / nn
+    m4 = s[4] / nn
+    g2 = m4 / (m2 * m2) - 3.0
+    return torch.where(n > 0, g2, _NAN)
 
 
 def masked_var(x, mask, ddof: int = 1):
-    n = count(mask)
-    mu = masked_mean(x, mask)
-    m2 = _central_moment(x, mask, mu, 2)
-    denom = (n - ddof).clamp(min=1)
-    return torch.where(n > ddof, m2 / denom, _NAN)
+    return var_of(masked_moments(x, mask, orders=(2,)), ddof)
 
 
 def masked_std(x, mask, ddof: int = 1):
@@ -70,27 +111,12 @@ def masked_std(x, mask, ddof: int = 1):
 
 def masked_skew(x, mask):
     """Biased Fisher-Pearson g1 (polars ``Expr.skew(bias=True)`` default)."""
-    n = count(mask)
-    mu = masked_mean(x, mask)
-    nn = n.clamp(min=1)
-    m2 = _central_moment(x, mask, mu, 2) / nn
-    m3 = _central_moment(x, mask, mu, 3) / nn
-    # m2^1.5 as m2 * sqrt(m2): both correctly rounded on every path, where
-    # torch's CPU pow(m2, 1.5) differs between its vector and scalar
-    # paths, so its bits would follow the tensor's length
-    g1 = m3 / (m2 * torch.sqrt(m2))  # m2 == 0 -> NaN/inf, as polars
-    return torch.where(n > 0, g1, _NAN)
+    return skew_of(masked_moments(x, mask, orders=(2, 3)))
 
 
 def masked_kurtosis(x, mask):
     """Biased Fisher excess kurtosis (polars ``Expr.kurtosis()`` default)."""
-    n = count(mask)
-    mu = masked_mean(x, mask)
-    nn = n.clamp(min=1)
-    m2 = _central_moment(x, mask, mu, 2) / nn
-    m4 = _central_moment(x, mask, mu, 4) / nn
-    g2 = m4 / (m2 * m2) - 3.0
-    return torch.where(n > 0, g2, _NAN)
+    return kurtosis_of(masked_moments(x, mask, orders=(2, 4)))
 
 
 def masked_corr(x, y, mask):
